@@ -1,6 +1,6 @@
-"""ccgp_tpu — TPU-native convex-combination-of-Gaussian-processes framework.
+"""ccgp_tpu — convex-combination-of-Gaussian-processes framework in JAX.
 
-A from-scratch JAX / XLA / Pallas re-design of the capabilities of
+A from-scratch JAX / XLA re-design of the capabilities of
 `oharari/Convex-Combination-of-Gaussian-Processes` (Harari & Steinberg,
 Technometrics 2014): Bayesian "combined GP" emulation of deterministic
 computer experiments, where the prior mixes a smooth and a rough GP via a
@@ -15,7 +15,8 @@ implying the mixed correlation
 Subpackages
 -----------
 ops        kernels (Matern / cubic-spline / squared-exponential), pairwise
-           distances, Pallas blocked Gram kernels, Cholesky/log-det linalg.
+           distances, Cholesky/log-det linalg, and a CUDA kernel for the
+           speculative Metropolis rounds on GPUs.
 models     convex-combination covariance, priors, transformed log-posterior,
            the CombinedGP model, ordinary-kriging and composite-GP baselines.
 infer      on-device L-BFGS MLE, Laplace approximation, Metropolis sampler

@@ -22,27 +22,28 @@ def main(argv=None):
                     help="small MCMC budget (smoke-test scale)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend")
+                    help="force the CPU backend (with --mesh N: N virtual "
+                         "CPU devices)")
     ap.add_argument("--f64", action="store_true",
-                    help="enable float64 (CPU only; TPU degrades f64)")
+                    help="enable float64 (the CPU and the GPU compute it "
+                         "natively; default float32)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="shard the sweep's design axis over an N-device "
-                         "mesh (virtual CPU devices are configured "
-                         "automatically when fewer real devices exist); "
-                         "sim_2d_sweep only")
+                         "mesh of real devices (or virtual CPU devices "
+                         "with --cpu); sim_2d_sweep only")
     ap.add_argument("--designs", type=int, default=0,
                     help="number of shipped Train_Designs to sweep "
                          "(sim_2d_sweep only)")
     ap.add_argument("--speculative", type=int, default=0, metavar="K",
                     help="evaluate K speculative Metropolis proposals per "
-                         "round as one batched (Pallas on TPU) "
-                         "factorization — same Markov kernel, ~3x faster "
-                         "chains (DESIGN.md \u00a78)")
+                         "round as one batched factorization (a CUDA "
+                         "kernel on a GPU) — same Markov kernel "
+                         "(DESIGN.md \u00a78)")
     args = ap.parse_args(argv)
 
     import os
 
-    if args.mesh > 1:
+    if args.cpu and args.mesh > 1:
         # must happen before the JAX backend initializes (same recipe as
         # __graft_entry__.dryrun_multichip / tests/conftest.py)
         flags = os.environ.get("XLA_FLAGS", "")
@@ -53,8 +54,12 @@ def main(argv=None):
 
     import jax
 
-    if args.cpu or args.mesh > 1:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    if args.mesh > len(jax.devices()):
+        ap.error(f"--mesh {args.mesh}: only {len(jax.devices())} "
+                 f"{jax.devices()[0].platform} device(s); add --cpu for "
+                 "virtual CPU devices")
     if args.f64:
         jax.config.update("jax_enable_x64", True)
 

@@ -50,7 +50,7 @@ def _s_criterion(x: jnp.ndarray) -> jnp.ndarray:
 
 def optimum_lhs(key: jax.Array, n: int, d: int, max_sweeps: int = 2,
                 dtype=jnp.float64) -> jnp.ndarray:
-    """Columnwise-pairwise swap-optimized LHS — the TPU-first equivalent of
+    """Columnwise-pairwise swap-optimized LHS — the batched equivalent of
     `lhs::optimumLHS` (`Batch Sequential ME Design.R:899,935`): start from a
     random LHD and, column by column, repeatedly apply the best
     S-criterion-improving swap of two entries.

@@ -4,7 +4,7 @@ Reference (`Batch Sequential ME Designs/Batch Sequential ME Design.R:
 883-949`): `n_starts` optimumLHS starts rescaled to [-1,1]^{n x d}, each
 refined by a serial L-BFGS-B over the flattened coordinates, keep the best.
 
-TPU-first: all restarts refine as ONE vmapped bounded-BFGS batch; the
+Design: all restarts refine as ONE vmapped bounded-BFGS batch; the
 criterion itself is a batched Cholesky log-det, and for the second batch the
 Schur complement reuses a single factorization of R_old across every
 candidate evaluation of every restart (incremental log-det, the

@@ -12,7 +12,7 @@ approximated over Halton nodes p ~ U(0,1), theta_i = qigamma(p; a_i, b_i);
 the tau^2 J term integrates the intercept out under a vague prior. The grid
 row with the largest value wins.
 
-TPU-first: the reference evaluates 60 x 1728 (or 624 x 1000) dense
+Design: the reference evaluates 60 x 1728 (or 624 x 1000) dense
 likelihoods in nested R loops with a progress bar; here all nodes of a row
 are one vmapped batched-Cholesky sweep and rows run under lax.map (or
 sharded over a device mesh via ccgp_tpu.parallel) — the workload is
@@ -28,7 +28,7 @@ import numpy as np
 
 from ccgp_tpu.eb.halton import halton
 from ccgp_tpu.models.combination import MixtureSpec, MixParams, mixed_gram
-from ccgp_tpu.ops.pallas_chol import chol_quadratics
+from ccgp_tpu.ops.gp import chol_quadratics
 from ccgp_tpu.ops.special import invgamma_quantile
 
 _LOG2PI = 1.8378770664093453
@@ -74,8 +74,7 @@ def marginal_likelihood(
         return s2t * mixed_gram(spec, x, params) + tau * tau  # + tau^2 J
 
     covs = jax.vmap(cov_of)(p, theta1, theta2)        # (N, n, n)
-    # the node sweep is one batched Cholesky: on TPU this dispatches the
-    # lane-batched Pallas kernel (ops/pallas_chol_lanes)
+    # the node sweep is one batched Cholesky
     q = chol_quadratics(covs, y, jitter=jitter)
     ll = -0.5 * (n * _LOG2PI + q["logdet"] + q["qyy"])
     ll = jnp.where(jnp.isfinite(ll), ll, -jnp.inf)

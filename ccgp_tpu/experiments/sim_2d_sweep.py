@@ -6,11 +6,11 @@ The reference loops its 100 shipped Train_Designs serially through
 Isotropic Public.R:840-868` is the per-design pipeline). Here every design
 is a batch lane of ONE jitted program — plug-in sigma^2 grid-MLE,
 Metropolis chain, posterior prediction, RMSPE/coverage/quantile — and with
-`mesh_devices > 1` the design axis is sharded over a `jax.sharding.Mesh`
-(`parallel.sharded_design_sweep`), so the sweep scales across chips with
+`mesh_devices` set the design axis is sharded over a `jax.sharding.Mesh`
+(`parallel.sharded_design_sweep`), so the sweep scales across devices with
 zero communication until the final host-side summary.
 
-CLI: `python -m ccgp_tpu sim_2d_sweep --mesh 8 --designs 16`.
+CLI: `python -m ccgp_tpu sim_2d_sweep --mesh 4 --designs 16`.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ class Config:
     n_designs: int = 16
     n_new_axis: int = 15
     jitter: float = 1e-5
-    mesh_devices: int = 0      # 0/1 = single device; >1 = shard designs
+    mesh_devices: int = 0      # 0 = unsharded; N >= 1 = an N-device mesh
     mcmc: MCMCConfig = MCMCConfig(start=(1.0, 1.0, 0.0), n_max=3000,
                                   samp_size=600, net_samp_size=400)
 
@@ -87,13 +87,30 @@ def _study_one_fn(cfg: Config, fam, spec, xg, y_true, mle_grid_np, dtype):
     return study_one
 
 
-def run(cfg: Config = Config(), key=None, dtype=jnp.float32) -> SweepResult:
+def seeded_designs(m: int, n: int = 14, seed: int = 0) -> np.ndarray:
+    """m seeded n-point maximin LHS designs on [0, 1]^2 (`design.lhs`), in
+    place of the reference's shipped Train_Designs."""
+    from ccgp_tpu.design.lhs import maximin_lhs
+
+    keys = jax.random.split(jax.random.PRNGKey(seed), m)
+    with jax.default_device(jax.devices("cpu")[0]):
+        return np.stack([np.asarray(maximin_lhs(k, n, 2, dtype=jnp.float32),
+                                    np.float64) for k in keys])
+
+
+def run(cfg: Config = Config(), key=None, dtype=jnp.float32,
+        designs: np.ndarray | None = None) -> SweepResult:
+    """designs: (m, n, 2) training designs; None loads the reference's
+    first cfg.n_designs shipped Train_Designs."""
     key = jax.random.PRNGKey(0) if key is None else key
 
     fam = kernels.sqexp_family()
     spec = MixtureSpec(fam, fam, dim=2)
-    designs_np = np.stack([load_2d_training_design(i + 1)
-                           for i in range(cfg.n_designs)])
+    if designs is None:
+        designs_np = np.stack([load_2d_training_design(i + 1)
+                               for i in range(cfg.n_designs)])
+    else:
+        designs_np = np.asarray(designs)
     u = np.linspace(0, 1, cfg.n_new_axis)
     grid_np = np.stack(np.meshgrid(u, u), -1).reshape(-1, 2)
     xg = jnp.asarray(grid_np, dtype)
@@ -101,11 +118,11 @@ def run(cfg: Config = Config(), key=None, dtype=jnp.float32) -> SweepResult:
     mle_grid_np = np.linspace(-2.0, 5.0, 32, dtype=np.float32)
 
     designs = jnp.asarray(designs_np, dtype)
-    keys = jax.random.split(key, cfg.n_designs)
+    keys = jax.random.split(key, designs.shape[0])
 
     study_one = _study_one_fn(cfg, fam, spec, xg, y_true, mle_grid_np, dtype)
 
-    if cfg.mesh_devices and cfg.mesh_devices > 1:
+    if cfg.mesh_devices:
         from ccgp_tpu.parallel import make_mesh, sharded_design_sweep
 
         mesh = make_mesh(cfg.mesh_devices)

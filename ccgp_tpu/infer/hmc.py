@@ -24,7 +24,7 @@ Design:
   a non-finite trajectory or a Hamiltonian error > `divergence_thresh`
   zeroes the acceptance probability — the standard divergent-transition
   rejection, branch-free.
-* One `lax.scan` per phase; the whole sampler jits into a single TPU
+* One `lax.scan` per phase; the whole sampler jits into a single
   program. Multi-chain = `vmap` over (start, key), same as `metropolis`.
 
 Layering: takes a scalar `logpost_val` callable (like `infer.laplace`)

@@ -17,14 +17,13 @@ Reference semantics (`1D Codes and Designs/1D Combined GP Public.R:657-719`):
   window; sampling halts when min-over-parameters p-value >= alpha_geweke,
   or after `n_max` recorded draws (`:684,707-712`).
 
-TPU-first design: one `lax.while_loop` whose carry holds the fixed-size
-sample buffers; the Geweke diagnostic runs on-device (`lax.cond`-gated), so
-an entire chain is a single jitted computation. Multiple chains = vmap over
+Design: one `lax.while_loop` whose carry holds the fixed-size sample
+buffers; the Geweke diagnostic runs on-device (`lax.cond`-gated), so an
+entire chain is a single jitted computation. Multiple chains = vmap over
 (start, key) — each chain stops at its own Geweke time, with masked
 buffers. Per-draw R^{-1} caches are NOT stored (the reference hauls n^2
 floats per draw through a data frame, `:729-783`); factorizations are
-recomputed batched at prediction time, which on the MXU is cheaper than the
-memory traffic.
+recomputed batched at prediction time.
 """
 from __future__ import annotations
 
@@ -35,17 +34,9 @@ import jax.numpy as jnp
 
 from ccgp_tpu.infer.geweke import geweke_pvalue
 from ccgp_tpu.infer.laplace import laplace, LaplaceFit
-from ccgp_tpu.ops.pallas_rng import (split_chain_supported,
-                                     threefry_split_chain)
 
-# debug escape: False forces the chunked driver's per-round key chain back
-# to the unrolled XLA scan even on TPU (the two are bit-identical —
-# tests/test_pallas_rng.py, scripts/verify_split_chain_tpu.py)
-SPLIT_CHAIN_KERNEL = True
-
-# default warm-phase chunk size (rounds per kernel launch while no Geweke
-# check boundary is reachable) — exported so callers sizing the stash
-# buffer (models/combined_gp.py) agree with the driver's slack rows
+# default warm-phase chunk size (rounds per call while no Geweke check
+# boundary is reachable)
 ROUNDS_PER_CALL_WARM = 120
 
 
@@ -59,16 +50,6 @@ class MetropolisResult(NamedTuple):
     pvalue: jnp.ndarray      # final Geweke p-value
     converged: jnp.ndarray   # stopped via Geweke (vs. hitting n_max)
     laplace: LaplaceFit
-    # per-record prediction factors [row-scaled L rows | L^{-1}y |
-    # L^{-1}1] (decode via `predict.factors.decode_stash`), emitted by
-    # the multi-round kernel when stash_rows is set (row i <-> samples
-    # row i, capacity `stash_cap` rows); None otherwise
-    factors: jnp.ndarray | None = None
-    # True iff every stash write stayed inside the (possibly capped)
-    # factors buffer — when False the buffer holds clamp-corrupted rows
-    # and consumers must rebuild factors classically; None when factors
-    # is None
-    factors_ok: jnp.ndarray | None = None
     # speculative ROUNDS executed (each evaluates all K candidates as one
     # batched kernel step regardless of how many proposals it consumes) —
     # the honest kernel-work unit for perf tables: n_proposals counts
@@ -116,13 +97,9 @@ def metropolis(
     laplace_fit: LaplaceFit | None = None,
     speculative: int = 0,
     logpost_batch: Callable | None = None,
-    mh_round: Callable | None = None,
     mh_rounds: Callable | None = None,
     rounds_per_call: int = 20,
     rounds_per_call_warm: int = ROUNDS_PER_CALL_WARM,
-    stash_rows: int | None = None,
-    stash_lanes: int = 128,
-    stash_cap: int | None = None,
 ) -> MetropolisResult:
     """Run one chain. `logpost(z)` must return an object with `.val` (scalar
     log-posterior; -inf for invalid) and `.beta`.
@@ -139,40 +116,32 @@ def metropolis(
     random-walk proposal leaves the state unchanged, the K candidates are
     i.i.d. draws from the same proposal distribution the sequential
     algorithm would use — the Markov kernel is EXACTLY the reference's
-    (`1D...Public.R:684-713`), only the evaluation is batched (a TPU-first
-    trade: one wide batched factorization instead of ~1/acc_rate
-    latency-bound sequential ones). Requires record='accepted' (rejections
+    (`1D...Public.R:684-713`), only the evaluation is batched (one wide
+    batched factorization instead of ~1/acc_rate latency-bound sequential
+    ones). Requires record='accepted' (rejections
     are never recorded, so discarding unused candidates loses nothing).
 
     logpost_batch: optional f(Z (K, dim)) -> (vals (K,), betas (K,)) used
     by the speculative body instead of `jax.vmap(logpost)`. Pass
     `models.likelihood.make_logpost_batch(...)` so the K factorizations
-    reach the small-batch Pallas kernel as one explicit batch (a vmap of a
-    Pallas call serializes matrices across grid programs).
-
-    mh_round: optional f(z, lp_val, lp_beta, cands, log_u) ->
-    (z_new, val_new, beta_new, any_acc, consumed) evaluating a WHOLE
-    speculative round (`models.likelihood.make_mh_round`): on TPU the
-    entire decision fuses into one Pallas kernel. Takes precedence over
-    logpost_batch; identical random stream and Markov kernel.
+    run as one explicit batch.
 
     mh_rounds: optional CHUNKED driver (`models.likelihood.make_mh_rounds`)
-    evaluating `rounds_per_call` whole rounds per call — on TPU one
-    sequential-grid Pallas launch per chunk, with per-record prediction
-    factors stashed when `stash_rows` is set (surfaced as
-    `MetropolisResult.factors`). The chunk RNG reproduces the per-round
+    evaluating `rounds_per_call` whole rounds per call — on a GPU one
+    CUDA kernel launch per chunk inside its envelope. The chunk RNG
+    reproduces the per-round
     stream exactly (sequential key splits, batched generation) and
     Geweke stopping / caps are applied with per-round truncation, so the
     chain is draw-for-draw identical to the one-round bodies
-    (tests/test_mh_rounds.py). Takes precedence over mh_round.
+    (tests/test_mh_rounds.py). Takes precedence over logpost_batch.
     `rounds_per_call` is clamped to `batch_size` so a chunk can cross at
     most one Geweke check boundary.
 
     rounds_per_call_warm: chunk size of the WARM phase. A Geweke check can
     only fire at record position >= samp_size, so while
     k_rec + rounds_per_call_warm < samp_size NO round of a chunk can reach
-    a check boundary and the driver runs big check-free chunks (one kernel
-    launch + one slab landing per `rounds_per_call_warm` rounds, no
+    a check boundary and the driver runs big check-free chunks (one
+    mh_rounds call + one slab landing per `rounds_per_call_warm` rounds, no
     conditional); the check-aware `rounds_per_call` loop takes over for the
     tail. The per-round random stream depends only on the sequential key
     splits, never on chunk boundaries, so the chain is bit-identical for
@@ -201,8 +170,7 @@ def metropolis(
 
     # ONE packed record buffer [z | beta | logpost] per row: a single
     # unconditional dynamic-update-slice per round replaces three
-    # buffer-wide jnp.where selects + three scatters (measured ~3 us/round
-    # of the ~12 us non-kernel round cost on v5e). Rows are written every
+    # buffer-wide jnp.where selects + three scatters. Rows are written every
     # round: when nothing is recorded the row index does not advance, so
     # the slot is overwritten by the next real record and rows >= k_rec
     # are never read (`retained` clamps into the recorded range).
@@ -286,29 +254,8 @@ def metropolis(
         return (key, k_rec, n_prop, n_acc, z_new, val_new, beta_new,
                 P, pv, n_rnd + 1)
 
-    def body_mh(state):
-        (key, k_rec, n_prop, n_acc, z, lp_val, lp_beta, P, pv,
-         n_rnd) = state
-        key, k1, k2 = jax.random.split(key, 3)
-        eps = jax.random.normal(k1, (K, dim), dtype)
-        cands = z[None, :] + eps @ prop_chol.T
-        log_u = jnp.log(jax.random.uniform(k2, (K,), dtype=dtype))
-        zc, vc, bc, any_acc, consumed = mh_round(z, lp_val, lp_beta,
-                                                 cands, log_u)
-        z_new = jnp.where(any_acc, zc, z)
-        val_new = jnp.where(any_acc, vc, lp_val)
-        beta_new = jnp.where(any_acc, bc, lp_beta)
-        P = write_row(P, k_rec, z_new, beta_new, val_new)
-        k_rec = k_rec + any_acc.astype(k_rec.dtype)
-        n_acc = n_acc + any_acc.astype(n_acc.dtype)
-        n_prop = n_prop + consumed.astype(n_prop.dtype)
-        check = any_acc & (k_rec >= samp_size) & (k_rec % batch_size == 0)
-        pv = jax.lax.cond(check, lambda: do_geweke(P, k_rec), lambda: pv)
-        return (key, k_rec, n_prop, n_acc, z_new, val_new, beta_new,
-                P, pv, n_rnd + 1)
-
     # ---- chunked multi-round driver (mh_rounds): RR rounds per loop
-    # iteration, one kernel launch + one record-slab write each ----------
+    # iteration, one mh_rounds call + one record-slab write each ---------
     RR = int(rounds_per_call)
     if mh_rounds is not None and K > 1:
         if record != "accepted":
@@ -321,39 +268,17 @@ def metropolis(
         # +RW slack rows for chunk overshoot, +1 scratch row that rejected
         # rounds' scatter writes land in (never read)
         Pc0 = jnp.zeros((n_max + RW + 1, dim + 2), dtype)
-        # the stash buffer can be CAPPED below the worst-case chain
-        # length (its rows cost stash_rows * stash_lanes * 4 bytes each —
-        # ~1 MB at n=512, so a full n_max-capacity buffer would be
-        # several GB): writes past the cap clamp (harmless corruption of
-        # tail rows) and flip st_ok False, telling the consumer to
-        # rebuild factors classically instead of decoding the stash
-        # floor RW + 1: every chunk body traces a dynamic-update-slice
-        # of an RW-row slab, which must FIT the buffer regardless of
-        # how far the chain actually runs
-        ST_CAP = (n_max + RW + 1 if stash_cap is None
-                  else max(min(int(stash_cap), n_max + RW + 1), RW + 1))
-        ST0 = (jnp.zeros((ST_CAP, stash_rows, stash_lanes), dtype)
-               if stash_rows else None)
 
         def rng_step(k, _):
             k, k1, k2 = jax.random.split(k, 3)
             return k, (k1, k2)
 
-        # the per-chunk SEQUENTIAL key-split chain: as an unrolled XLA
-        # scan it lowers to ~rr small non-fused fusions (~250-450 us per
-        # 120-round chunk, most of the loop's remaining non-kernel time);
-        # on TPU with raw threefry keys the identical chain runs as ONE
-        # Pallas launch (ops/pallas_rng.py, bit-exact — integer equality
-        # tested per-backend, and the bench's pinned chain replays)
-        use_split_kernel = (SPLIT_CHAIN_KERNEL
-                            and jax.default_backend() == "tpu"
-                            and split_chain_supported(key))
-
         def chunk_keys(k, rr: int):
-            if use_split_kernel:
-                return threefry_split_chain(k, rr)
-            k, (k1s, k2s) = jax.lax.scan(rng_step, k, None, length=rr,
-                                         unroll=True)
+            # the per-chunk SEQUENTIAL key-split chain, unrolled so XLA
+            # fuses it (named so a profile attributes its device time)
+            with jax.named_scope("split_chain"):
+                k, (k1s, k2s) = jax.lax.scan(rng_step, k, None, length=rr,
+                                             unroll=True)
             return k, k1s, k2s
 
         def make_body(rr: int, check: bool):
@@ -362,8 +287,8 @@ def metropolis(
             can reach record position samp_size)."""
 
             def body_c(state):
-                (key, k_rec, n_prop, n_acc, z, lpv, lpb, P, pv, ST,
-                 st_ok, n_rnd) = state
+                (key, k_rec, n_prop, n_acc, z, lpv, lpb, P, pv,
+                 n_rnd) = state
                 # chunk RNG: the EXACT per-round stream (sequential key
                 # splits via scan, then batched generation per round key —
                 # values identical to the one-round bodies')
@@ -390,9 +315,7 @@ def metropolis(
                 # positions first (the Geweke window reads P). Accepted
                 # rows are COMPACTED to the slab front by ONE gather
                 # (stable order), then ONE dynamic-update-slice lands the
-                # slab at k_rec: an XLA row-scatter lowers to a sequential
-                # update-per-row loop on TPU (~2 us x RR rows x the 53 KB
-                # stash rows dominated the chunk overhead). Rejected rows
+                # slab at k_rec instead of a per-row scatter. Rejected rows
                 # in the slab tail and any beyond-prefix rows are scratch
                 # that later chunks overwrite from the truncated k_rec.
                 idx_r = jnp.arange(rr)
@@ -400,14 +323,6 @@ def metropolis(
                                               rr + idx_r))
                 P = jax.lax.dynamic_update_slice(
                     P, out["rec"][order], (k_rec, 0))
-                if ST is not None:
-                    if ST.shape[0] < n_max + RW + 1:
-                        # capped buffer: a chunk whose slab could reach
-                        # past the cap clamps (corrupting tail rows) —
-                        # record it so the consumer rebuilds instead
-                        st_ok = st_ok & (k_rec + rr <= ST.shape[0])
-                    ST = jax.lax.dynamic_update_slice(
-                        ST, out["stash"][order], (k_rec, 0, 0))
 
                 if check:
                     check_round = (runnable & out["acc"]
@@ -429,7 +344,7 @@ def metropolis(
                 n_rnd_c = jnp.sum(valid.astype(n_rnd.dtype))
                 return (key, k_rec + n_acc_c, n_prop + n_con_c,
                         n_acc + n_acc_c, out["z_fin"], out["val_fin"],
-                        out["beta_fin"], P, pv, ST, st_ok, n_rnd + n_rnd_c)
+                        out["beta_fin"], P, pv, n_rnd + n_rnd_c)
 
             return body_c
 
@@ -451,8 +366,8 @@ def metropolis(
             return cond
 
         init_c = (key, jnp.asarray(0), jnp.asarray(0), jnp.asarray(0),
-                  z0, lp0.val, lp0.beta, Pc0, jnp.asarray(0.0, dtype), ST0,
-                  jnp.asarray(True), jnp.asarray(0))
+                  z0, lp0.val, lp0.beta, Pc0, jnp.asarray(0.0, dtype),
+                  jnp.asarray(0))
         # three phases, all over the SAME per-round stream (chunk size and
         # check elision never change which rounds run — only how they are
         # batched): check-free 120-round warm chunks, then check-free
@@ -463,8 +378,7 @@ def metropolis(
         mid = (jax.lax.while_loop(cond_free(RR), make_body(RR, check=False),
                                   warm)
                if RR < RW else warm)
-        (key, k_rec, n_prop, n_acc, z, lp_val, lp_beta, P, pv, ST,
-         st_ok, n_rnd) = (
+        (key, k_rec, n_prop, n_acc, z, lp_val, lp_beta, P, pv, n_rnd) = (
             jax.lax.while_loop(cond_c, make_body(RR, check=True), mid)
         )
         row_ids = jnp.arange(n_max)
@@ -474,14 +388,10 @@ def metropolis(
             logposts=jnp.where(recorded, P[:n_max, dim + 1], -jnp.inf),
             n_recorded=k_rec, n_proposals=n_prop, n_accepted=n_acc,
             pvalue=pv, converged=pv >= alpha_geweke, laplace=fit,
-            factors=ST, factors_ok=None if ST is None else st_ok,
             n_rounds=n_rnd,
         )
 
-    if K > 1:
-        body_fn = body_mh if mh_round is not None else body_spec
-    else:
-        body_fn = body
+    body_fn = body_spec if K > 1 else body
     init = (key, jnp.asarray(0), jnp.asarray(0), jnp.asarray(0),
             z0, lp0.val, lp0.beta, packed0, jnp.asarray(0.0, dtype),
             jnp.asarray(0))

@@ -7,7 +7,7 @@ sigma^2 plug-in in every >=2-D script, e.g. `2D Codes and Designs/2D
 Combined GP Isotropic Public.R:743-744` and `Heat Exchanger
 Emulator/Combined GP Heat Exchanger.R:759-760`).
 
-TPU-first: the profile negative log-likelihood (Cholesky log-det + GLS
+Design: the profile negative log-likelihood (Cholesky log-det + GLS
 beta + variance MLE) is differentiated with jax.grad and minimized by a
 vmapped multistart BFGS in log-theta space — all restarts run as one
 compiled batch, and singular Grams turn into +inf objectives instead of R
@@ -104,14 +104,12 @@ def kriging_mle_grid(
     jitter: float = 1e-10,
 ) -> KrigingMLE:
     """Scalar-rate profile-ML fit by a dense batched log-theta grid plus one
-    parabolic refinement — the TPU-first plug-in: one batched Cholesky
-    (throughput-bound) instead of a sequential quasi-Newton chain
-    (latency-bound; measured ~73 ms of the full-Bayes fit's device time).
+    parabolic refinement: one batched Cholesky (throughput-bound) instead
+    of a sequential quasi-Newton chain (latency-bound).
     Same role as `MLEs`/`mlegp`'s sigma^2 plug-in (`1D...Public.R:455-471`);
     scalar theta only — use `kriging_mle(ard=True)` for per-dimension rates.
     """
-    from ccgp_tpu.ops.pallas_chol import (
-        chol_quadratics, profile_nll_from_quadratics)
+    from ccgp_tpu.ops.gp import chol_quadratics, profile_nll_from_quadratics
 
     n = y.shape[-1]
 
@@ -164,7 +162,7 @@ def mlegp_fit(
 
     mlegp's algorithm is profile ML over per-dimension rates, searched by
     5 random-start simplex runs + a loosely-converged BFGS (tol 0.01).
-    The TPU-first protocol here is stronger and deterministic-by-default:
+    The protocol here is stronger and deterministic-by-default:
     seed from the 1-D isotropic profile-ML optimum (a dense batched grid),
     fan out per-dimension +/-2 and +/-4 log-kicks plus a small Gaussian
     cloud, refine every start as ONE vmapped box-BFGS batch, and take the

@@ -4,7 +4,7 @@ The reference scatters optimizer calls everywhere — `nlminb` with random
 restarts for the kriging MLE (`1D Codes and Designs/1D Combined GP
 Public.R:455-471`), `optim(L-BFGS-B)` for the CGP baseline
 (`1D...Public.R:156-161`) and the design search (`Batch Sequential ME
-Designs/Batch Sequential ME Design.R:900`). The TPU-first equivalent is one
+Designs/Batch Sequential ME Design.R:900`). The batched equivalent is one
 vmapped BFGS: every restart is a batch lane of the same compiled kernel, so
 a 25-start search costs one kernel launch instead of 25 serial optimizations.
 
@@ -36,7 +36,7 @@ def _guard(fn):
     Non-finite values become a large constant AND their gradients become
     zero: a plain `where` on the value still lets NaN cotangents flow
     through the non-finite branch and poison the BFGS state (observed on
-    the float32 TPU path, where singular Grams appear earlier than in
+    the float32 path, where singular Grams appear earlier than in
     float64). Implemented as a custom-VJP wrapper so both the primal and
     the pullback are sanitized.
     """

@@ -20,9 +20,9 @@ Reference constructions being covered:
   (`2D...Isotropic Advanced.R:456 vs :672`) reproduced only under
   compat="reference".
 
-TPU-first notes: when both components share a distance structure (same
-`raw_kind`), the O(n^2 d) pairwise-distance pass (an MXU matmul) is done
-once and both correlation maps are fused elementwise on top — 2x HBM-traffic
+Design notes: when both components share a distance structure (same
+`raw_kind`), the O(n^2 d) pairwise-distance pass (one matmul) is done
+once and both correlation maps are fused elementwise on top — 2x memory-traffic
 saving over the reference's two independent Gram builds. All outputs
 broadcast over leading batch axes.
 """

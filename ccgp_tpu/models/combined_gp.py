@@ -25,8 +25,7 @@ import jax.numpy as jnp
 from ccgp_tpu.infer.metropolis import metropolis, MetropolisResult
 from ccgp_tpu.infer.mle import kriging_mle, kriging_mle_grid, KrigingMLE
 from ccgp_tpu.models.combination import MixtureSpec, MixParams, unpack
-from ccgp_tpu.models.likelihood import (
-    make_logpost, make_logpost_batch, make_mh_round, make_mh_rounds)
+from ccgp_tpu.models.likelihood import make_logpost, make_mh_rounds
 from ccgp_tpu.models.priors import InverseGamma
 from ccgp_tpu.ops.kernels import KernelFamily
 
@@ -37,21 +36,6 @@ if TYPE_CHECKING:   # runtime imports are function-local: `predict` sits
     # predict.factors this module pulled back in.
     from ccgp_tpu.predict.factors import FactorCache
     from ccgp_tpu.predict.posterior import PosteriorPrediction
-
-
-# routes TPU speculative sampling through the chunked multi-round Pallas
-# kernel (16 rounds per sequential-grid launch + free factor stash); the
-# chunked driver is draw-for-draw identical to the one-round bodies
-# (tests/test_mh_rounds law-equality + interpret-mode kernel checks, and
-# the pinned bench chain reproduces 1060 recorded / 6746 proposals).
-MH_ROUNDS_CHUNKING = True
-
-# HBM budget for the sampler's stashed-factor buffer (rows cost
-# stash_rows * stash_lanes * 4 bytes: ~53 KB at n=100, ~1 MB at n=512,
-# ~4.2 MB at n=1024). Within budget the stash replaces the posterior
-# factor-cache rebuild for free; a chain recording past the capped
-# capacity falls back to the classic rebuild via lax.cond.
-_STASH_BUDGET_BYTES = 2 << 30
 
 
 @dataclass(frozen=True)
@@ -101,28 +85,25 @@ def fit_combined_gp(
 ) -> CombinedGPFit:
     """Fit the combined GP. sigma2=None triggers the plug-in kriging MLE;
     mle_method='grid' uses the batched dense-grid profile-ML plug-in
-    (one wide Cholesky sweep instead of a sequential BFGS chain — faster
-    on TPU, scalar rate only).
+    (one wide Cholesky sweep instead of a sequential BFGS chain; scalar
+    rate only).
 
     whiten=True switches every log-posterior evaluation to the
     cancellation-free whitened quadratic (see `make_logpost`): for f32
     chains at n >= 768 where the bordered qoy accumulation loses ~0.17
     relative accuracy (DESIGN.md; oracle adjudication in
     scripts/verify_whiten_oracle.py). Routes the sampler to the XLA
-    fallback (no fused kernel, no factor stash) — slower, so default off.
+    scan (no CUDA kernel) — slower, so default off.
 
     draw_chunk: for large-n fits whose full per-draw factor cache
-    (net, n, n) would not fit in HBM (m=400 draws at n=2048 is already
+    (net, n, n) would not fit in device memory (m=400 draws at n=2048 is already
     6.25 GB of Cholesky factors), skip the cache build entirely and
     return a LAZY cache (empty factor arrays): `predict_combined_gp`
     then computes the predictive moments draw_chunk draws at a time
     (`predict.posterior.predictive_moments_lazy`, peak factor memory
     draw_chunk * n^2). The fit stores `y` and `jitter` so the lazy
-    predict path is self-contained. draw_chunk takes precedence over
-    the sampler's factor stash: an explicit request to bound HBM is
-    honored even when stashed factors are available (the (net, n, n)
-    decode is skipped). Predictions match the classic cache to
-    numerical roundoff (tests/test_predict.py)."""
+    predict path is self-contained. Predictions match the classic cache
+    to numerical roundoff (tests/test_predict.py)."""
     k_mle, k_mcmc = jax.random.split(key)
     family = mle_family or spec.kernel1
     if mle_method == "grid":
@@ -136,79 +117,24 @@ def fit_combined_gp(
     logpost = make_logpost(spec, x, y, s2, theta1_prior=theta1_prior,
                            theta2_prior=theta2_prior, p_prior=p_prior,
                            jitter=jitter, whiten=whiten)
-    round_fn = None
-    rounds_fn = None
-    stash_rows = stash_lanes = stash_cap = None
     n_train = x.shape[-2]
-    se_mix = (spec.kernel1.raw_kind == "sqdist"
-              and spec.kernel2.raw_kind == "sqdist")
+    rounds_fn = None
     if mcmc.speculative and mcmc.speculative > 1:
-        if (MH_ROUNDS_CHUNKING and se_mix
-                and jax.default_backend() == "tpu"
-                and mcmc.record == "accepted"):
-            # CHUNKED multi-round driver (20 rounds per launch, chain
-            # identical to the one-round bodies). Inside the
-            # `dispatch_ok` envelope (n <= 1024, K <= 16,
-            # K*tiles^2 <= 256): one Pallas kernel per chunk with
-            # candidate transform/priors in-kernel AND the per-record
-            # prediction factors [L | L^-1 y | L^-1 1] stashed as free
-            # factorization byproducts (deletes the posterior
-            # factor-cache rebuild — ~10 ms/1000 draws at n=100, tens of
-            # ms at multi-tile sizes); outside the envelope: the
-            # driver's XLA scan fallback (still ~20 rounds per dispatch
-            # vs one) — same records in every regime. The stash gate
-            # must mirror make_mh_rounds' fused-kernel condition:
-            # stash=True on the XLA fallback is a ValueError (the
-            # fallback emits no stash). Multi-tile stash rows cost
-            # stash_rows * stash_lanes * 4 bytes each, so the buffer is
-            # CAPPED to _STASH_BUDGET_BYTES: chains that record past the
-            # cap flip factors_ok and the cache is rebuilt classically
-            # (lax.cond below); if even samp_size + warm-chunk slack
-            # doesn't fit, the stash is off entirely.
-            from ccgp_tpu.infer.metropolis import ROUNDS_PER_CALL_WARM
-            from ccgp_tpu.ops.pallas_chol_smallk import dispatch_ok
-
-            use_stash = (not whiten
-                         and dispatch_ok(n_train, mcmc.speculative))
-            if use_stash:
-                stash_rows = -(-(n_train + 2) // 8) * 8
-                stash_lanes = -(-n_train // 128) * 128
-                row_bytes = stash_rows * stash_lanes * 4
-                slack = ROUNDS_PER_CALL_WARM + 1
-                cap_allowed = _STASH_BUDGET_BYTES // row_bytes
-                if cap_allowed >= mcmc.n_max + slack:
-                    stash_cap = None     # full capacity: always decodable
-                elif cap_allowed >= mcmc.samp_size + slack:
-                    stash_cap = int(cap_allowed)
-                else:
-                    use_stash = False
-                    stash_rows = stash_lanes = None
-            rounds_fn = make_mh_rounds(spec, x, y, s2,
-                                       theta1_prior=theta1_prior,
-                                       theta2_prior=theta2_prior,
-                                       p_prior=p_prior, jitter=jitter,
-                                       stash=use_stash, whiten=whiten)
-        else:
-            # whole-round evaluation: the K speculative candidates' Grams,
-            # factorizations, log-posteriors and the MH first-acceptance
-            # scan fuse into one Pallas kernel on TPU (XLA elsewhere)
-            round_fn = make_mh_round(spec, x, y, s2,
-                                     theta1_prior=theta1_prior,
-                                     theta2_prior=theta2_prior,
-                                     p_prior=p_prior, jitter=jitter,
-                                     whiten=whiten)
+        # the chunked multi-round driver: 120 (warm) or 20 rounds per
+        # mh_rounds call — one CUDA launch on a GPU inside the kernel's
+        # envelope, an XLA scan elsewhere
+        rounds_fn = make_mh_rounds(spec, x, y, s2, theta1_prior=theta1_prior,
+                                   theta2_prior=theta2_prior,
+                                   p_prior=p_prior, jitter=jitter,
+                                   whiten=whiten)
     res = metropolis(logpost, jnp.asarray(mcmc.start, x.dtype), k_mcmc,
                      n_max=mcmc.n_max, samp_size=mcmc.samp_size,
                      batch_size=mcmc.batch_size,
                      alpha_geweke=mcmc.alpha_geweke, record=mcmc.record,
                      max_proposals=mcmc.max_proposals,
                      speculative=mcmc.speculative,
-                     mh_round=round_fn, mh_rounds=rounds_fn,
-                     stash_rows=stash_rows,
-                     stash_lanes=stash_lanes or 128,
-                     stash_cap=stash_cap)
-    from ccgp_tpu.predict.factors import (FactorCache, build_factors,
-                                          decode_stash)
+                     mh_rounds=rounds_fn)
+    from ccgp_tpu.predict.factors import FactorCache, build_factors
 
     zs_all, betas_all, _ = res.retained(mcmc.samp_size)
     # reference keeps the last net_samp_size of the samp_size window
@@ -216,35 +142,7 @@ def fit_combined_gp(
     zs = zs_all[mcmc.samp_size - mcmc.net_samp_size:]
     betas = betas_all[mcmc.samp_size - mcmc.net_samp_size:]
     params, _ = jax.vmap(lambda z: unpack(spec, z))(zs)
-    if res.factors is not None and draw_chunk is None:
-        # the sampler already emitted each retained draw's factors (XLA
-        # fuses this row gather into the consumers; a dynamic-slice /
-        # lax.cond fast path was measured NEUTRAL-to-slower on the bench)
-        hi = jnp.minimum(jnp.maximum(res.n_recorded - 1, 0),
-                         res.factors.shape[0] - 1)
-        idx = jnp.clip(res.n_recorded - mcmc.net_samp_size
-                       + jnp.arange(mcmc.net_samp_size), 0, hi)
-
-        def _decode(_):
-            chol, wy, wo = decode_stash(res.factors[idx], n_train)
-            return chol, wy - betas[:, None] * wo, wo
-
-        if stash_cap is None:
-            chol, a, u = _decode(None)
-        else:
-            # capped stash: a chain that recorded past the cap corrupted
-            # the buffer tail (factors_ok False) — rebuild classically;
-            # the cond compiles both branches but runs only one
-            def _rebuild(_):
-                c = build_factors(spec, x, y, zs, betas, jitter=jitter)
-                return c.chol, c.a, c.u
-
-            ok = res.factors_ok & (res.n_recorded
-                                   <= res.factors.shape[0])
-            chol, a, u = jax.lax.cond(ok, _decode, _rebuild, None)
-        cache = FactorCache(chol=chol, a=a, u=u, beta=betas,
-                            params=params)
-    elif draw_chunk is not None:
+    if draw_chunk is not None:
         # LAZY cache: factors are built draw_chunk at a time inside
         # predict_combined_gp (see the docstring above); the empty
         # leading axis is the static marker predict dispatches on

@@ -15,7 +15,7 @@ top-`num_starts` refined by bounded quasi-Newton, leave-one-out jackknife
 RMSCV at the optimum, and the predictor with local-variance weighting and
 1.96-sigma intervals.
 
-TPU-first rewrite:
+Batched rewrite:
 * the 4-iteration local-variance re-estimation is a static `fori`-style
   unroll inside one objective kernel (the reference's inner `for (rep in
   1:4)` loop, `:116-127`);

@@ -8,7 +8,7 @@ Reference semantics (`1D Codes and Designs/1D Combined GP Public.R:397-444,
     loglike    = dmnorm(y; beta 1, (p^2+(1-p)^2) sigma2 R)
     logpost    = loglike + log-Jacobian + log-prior
 
-TPU-first: everything is one Cholesky + triangular solves (no explicit
+Everything is one Cholesky + triangular solves (no explicit
 R^{-1}); a singular R yields NaN which flows to logpost = -inf, turning the
 reference's try/retry exception handling (`1D...Public.R:687-693`) into pure
 dataflow that the Metropolis kernel treats as a rejection.
@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from ccgp_tpu.models.combination import (
-    MixtureSpec, MixParams, _effective_rates, mixed_gram, mix_weights, unpack)
+    MixtureSpec, MixParams, mixed_gram, mix_weights, unpack)
 from ccgp_tpu.ops import linalg
 from ccgp_tpu.ops.gp import gls_beta, sigma2_mle, profile_nll  # re-export
 
@@ -76,7 +76,7 @@ def make_logpost(
         # ONE bordered factorization yields the factor, logdet and all
         # quadratic forms — no triangular solves in this hot path (the
         # Metropolis loop evaluates this thousands of times sequentially,
-        # and on TPU a batched triangular solve is as latency-bound as the
+        # and a small triangular solve is as latency-bound as the
         # factorization itself). Algebra identical to gls_beta +
         # mvn_logpdf_chol: beta = qoy/qoo, quad = qyy - qoy^2/qoo.
         q = linalg.bordered_cholesky_quadratics(r, y, jitter)
@@ -130,27 +130,17 @@ def make_logpost_batch(
     in-register). For f32 chains at n >= 768 where qoy cancellation costs
     ~0.17 relative; slower, so default off.
 
-    Same math, but the K Gram factorizations go through the
-    `chol_quadratics` dispatcher as ONE explicit batch instead of a vmap of
-    single evaluations. That routing matters on TPU: `jax.vmap` of a Pallas
-    call serializes matrices across grid programs, while the small-K
-    latency kernel (`ops/pallas_chol_smallk.py`) factorizes all K
-    simultaneously — this is the hot evaluation inside the speculative
-    Metropolis loop (`infer/metropolis.py` body_spec, K sequential-depth-
-    critical calls per round).
+    Same math, but the K Gram factorizations run as ONE explicit batch
+    (`ops.gp.chol_quadratics`) instead of a vmap of single evaluations.
 
     Only (val, beta) are returned — exactly what the sampler consumes;
     rejected candidates' factors are never materialized.
     """
-    from ccgp_tpu.ops.pallas_chol import chol_quadratics
+    from ccgp_tpu.ops.gp import chol_quadratics
 
     y = jnp.asarray(y)
     n = y.shape[-1]
     log2pi = math.log(2.0 * math.pi)
-
-    n_dim = x.shape[-1]
-    se_mix = (spec.kernel1.raw_kind == "sqdist"
-              and spec.kernel2.raw_kind == "sqdist")
 
     def logpost_batch(zs: jnp.ndarray):
         params, log_jac = jax.vmap(lambda z: unpack(spec, z))(zs)
@@ -174,19 +164,6 @@ def make_logpost_batch(
             w = linalg.tri_solve(chol, y[None, :] - beta[:, None])
             quad = jnp.sum(w * w, axis=-1)
             logdet = linalg.chol_logdet(chol)
-        elif (se_mix and jax.default_backend() == "tpu"
-                and x.shape[-2] <= 256 and kk <= 16):
-            # SE mixture: build the Gram INSIDE the latency kernel — the
-            # per-axis sq-diff stack is a loop invariant, so each round
-            # ships only the (K, d) rate rows (no Gram in HBM at all)
-            from ccgp_tpu.ops.pallas_chol_smallk import (
-                fused_mix_quadratics_smallk)
-
-            th1, th2 = _effective_rates(spec, params, predict=False)
-            r1 = jnp.broadcast_to(jnp.reshape(th1, (kk, -1)), (kk, n_dim))
-            r2 = jnp.broadcast_to(jnp.reshape(th2, (kk, -1)), (kk, n_dim))
-            q = fused_mix_quadratics_smallk(x, y, r1, r2, params.p,
-                                            jitter=jitter)
         else:
             r = jax.vmap(lambda p: mixed_gram(spec, x, p))(params)  # (K,n,n)
             # R_mix is a correlation matrix (unit diagonal), so the
@@ -219,86 +196,6 @@ def make_logpost_batch(
     return logpost_batch
 
 
-def make_mh_round(
-    spec: MixtureSpec,
-    x: jnp.ndarray,
-    y: jnp.ndarray,
-    sigma2,
-    theta1_prior=None,
-    theta2_prior=None,
-    p_prior=None,
-    jitter: float = 0.0,
-    whiten: bool = False,
-):
-    """One WHOLE speculative Metropolis round as a single evaluation:
-    f(z, lp_val, lp_beta, cands (K, dim), log_u (K,)) ->
-    (z_new, val_new, beta_new, any_acc, consumed).
-
-    On TPU for SE/SE mixtures (n <= 256, K <= 16) this is ONE Pallas
-    kernel — Gram builds, factorizations, log-posteriors AND the
-    first-acceptance scan (`ops/pallas_chol_smallk.fused_mix_mh_round`);
-    the profiler trace showed the unfused round spending ~12 of 33 us in
-    ~30 tiny XLA selection/reduction ops. Elsewhere it reduces to the
-    batched-logpost evaluation plus the same selection in XLA — the
-    evaluation order and random-stream consumption are identical, so the
-    chain matches the unfused speculative body draw-for-draw (up to
-    float-associativity rounding).
-    """
-    y = jnp.asarray(y)
-    n = y.shape[-1]
-    log2pi = math.log(2.0 * math.pi)
-    n_dim = x.shape[-1]
-    se_mix = (spec.kernel1.raw_kind == "sqdist"
-              and spec.kernel2.raw_kind == "sqdist")
-    lp_batch = make_logpost_batch(spec, x, y, sigma2,
-                                  theta1_prior=theta1_prior,
-                                  theta2_prior=theta2_prior,
-                                  p_prior=p_prior, jitter=jitter,
-                                  whiten=whiten)
-
-    def prior_terms(params, log_jac):
-        log_prior = jnp.zeros_like(log_jac)
-        if theta1_prior is not None:
-            lp1 = theta1_prior.log_kernel(params.theta1)
-            log_prior = log_prior + (jnp.sum(lp1, axis=-1)
-                                     if spec.anisotropic else lp1)
-        if theta2_prior is not None:
-            log_prior = log_prior + theta2_prior.log_kernel(params.theta2)
-        if p_prior is not None:
-            log_prior = log_prior + p_prior.log_kernel(params.p)
-        return log_jac + log_prior
-
-    def mh_round(z, lp_val, lp_beta, cands, log_u):
-        kk = cands.shape[0]
-        # whiten opts out of the fused kernel: its factorization core
-        # accumulates the bordered quadratics whose cancellation whiten
-        # exists to avoid (lp_batch carries the whitened math instead)
-        if (not whiten and se_mix and jax.default_backend() == "tpu"
-                and x.shape[-2] <= 256 and kk <= 16):
-            from ccgp_tpu.ops.pallas_chol_smallk import fused_mix_mh_round
-
-            params, log_jac = jax.vmap(lambda c: unpack(spec, c))(cands)
-            th1, th2 = _effective_rates(spec, params, predict=False)
-            r1 = jnp.broadcast_to(jnp.reshape(th1, (kk, -1)), (kk, n_dim))
-            r2 = jnp.broadcast_to(jnp.reshape(th2, (kk, -1)), (kk, n_dim))
-            _, _, s = mix_weights(params.p)
-            return fused_mix_mh_round(
-                x, y, r1, r2, params.p, prior_terms(params, log_jac),
-                jnp.log(s * sigma2), cands, lp_val, lp_beta, log_u,
-                jitter=jitter)
-        vals, betas = lp_batch(cands)
-        acc = (vals - lp_val) > log_u
-        any_acc = jnp.any(acc)
-        first = jnp.argmax(acc)
-        consumed = jnp.where(any_acc, first + 1, kk).astype(jnp.int32)
-        z_new = jnp.where(any_acc, cands[first], z)
-        val_new = jnp.where(any_acc, vals[first], lp_val)
-        beta_new = jnp.where(any_acc, betas[first], lp_beta)
-        return z_new, val_new, beta_new, any_acc, consumed
-
-    return mh_round
-
-
 def make_mh_rounds(
     spec: MixtureSpec,
     x: jnp.ndarray,
@@ -308,138 +205,45 @@ def make_mh_rounds(
     theta2_prior=None,
     p_prior=None,
     jitter: float = 0.0,
-    stash: bool = False,
     whiten: bool = False,
 ):
     """R whole speculative Metropolis rounds per evaluation:
-    f(z, lp_val, lp_beta, deltas (R*K, dim), log_u (R, K)) -> dict (see
-    `ops.pallas_chol_smallk.fused_mix_mh_rounds`).
+    f(z, lp_val, lp_beta, deltas (R*K, dim), log_u (R, K)) -> dict with
 
-    On TPU for SE/SE mixtures with any (n, K) inside
-    `pallas_chol_smallk.dispatch_ok`'s envelope (n <= 1024 via the
-    multi-tile blocked Schur core) the R rounds run as ONE Pallas
-    kernel with the candidate transform, priors and Jacobians evaluated
-    IN-KERNEL via the lane-space closure below — the per-round XLA
-    overhead (~30 tiny unpack/prior/operand-prep ops plus a kernel
-    launch, measured ~10 us of the ~28 us round) collapses into one
-    launch per R rounds. Elsewhere it falls back to a lax.scan of the
-    batched-logpost evaluation with identical random-stream consumption
-    and record semantics, so chains match draw-for-draw.
+      rec       (R, dim+2) per-round post-state rows [z | beta | logpost]
+                (row r repeats the previous state when round r rejected)
+      acc       (R,) bool    per-round acceptance flags
+      consumed  (R,) int32   proposals consumed per round
+      z_fin (dim,), val_fin, beta_fin: state after all R rounds
 
-    stash=True (TPU path only) additionally emits each accepted record's
-    prediction factor [L | L^{-1}y | L^{-1}1] — free byproducts of the
-    factorization (row-scaled transpose convention, decode via
-    `predict.factors.decode_stash`) — replacing the posterior
-    factor-cache rebuild; since round 4 this covers the multi-tile core
-    too (assembled factors, 128 < n <= 1024).
+    On a GPU, for models and shapes inside the CUDA kernel's envelope
+    (`ops.mh_rounds_gpu.use_kernel`: SE/SE mixture, float32, K bordered
+    Grams in one block's shared memory), the R rounds run as ONE kernel
+    launch. Everywhere else they run as a lax.scan of the batched-logpost
+    evaluation. Both consume the random stream identically, so chains
+    match the one-round speculative body draw-for-draw up to float
+    rounding.
+    whiten=True always takes the scan (the kernel accumulates the bordered
+    quadratics whose cancellation whiten avoids).
     """
-    from ccgp_tpu.utils import transforms
+    from ccgp_tpu.ops import mh_rounds_gpu
 
     y = jnp.asarray(y)
-    n = y.shape[-1]
-    n_dim = x.shape[-1]
-    se_mix = (spec.kernel1.raw_kind == "sqdist"
-              and spec.kernel2.raw_kind == "sqdist")
+    n, d = x.shape[-2], x.shape[-1]
     lp_batch = make_logpost_batch(spec, x, y, sigma2,
                                   theta1_prior=theta1_prior,
                                   theta2_prior=theta2_prior,
                                   p_prior=p_prior, jitter=jitter,
                                   whiten=whiten)
-
-    def cand_model(cz, iilane, s2sc):
-        """Lane-space `unpack` + priors: cz (K, 1, tile) with the
-        unconstrained candidate in lanes < dim. Every formula below calls
-        the SAME transform/prior functions as the XLA path on values
-        extracted exactly, so the results are bit-identical (Mosaic and
-        XLA lower exp/log/sigmoid/rsqrt to the same TPU ops — verified
-        elementwise on v5e)."""
-
-        def lane_scalar(v, i):
-            return jnp.sum(jnp.where(iilane == i, v, 0.0), axis=2,
-                           keepdims=True)                    # (K, 1, 1)
-
-        if spec.anisotropic:
-            dd = spec.dim
-            in_axes = iilane < dd
-            th1_row = jnp.where(in_axes, jnp.exp(cz), 0.0)
-            psi_sum = jnp.sum(jnp.where(in_axes, cz, 0.0), axis=2,
-                              keepdims=True)
-            phi = lane_scalar(cz, dd)
-            zeta = lane_scalar(cz, dd + 1)
-            theta2, jac_l = transforms.log_to_positive(zeta)
-            p, jac_p = transforms.logit_to_unit(phi)
-            log_jac = psi_sum + jac_l + jac_p
-            theta1_scalar = None
-        else:
-            in_axes = iilane < n_dim
-            psi1 = lane_scalar(cz, 0)
-            psi2 = lane_scalar(cz, 1)
-            phi = lane_scalar(cz, 2)
-            theta1_scalar, jac1 = transforms.log_to_positive(psi1)
-            theta2, jac2 = transforms.log_to_positive(psi2)
-            p, jac_p = transforms.logit_to_unit(phi)
-            log_jac = jac1 + jac2 + jac_p
-            th1_row = jnp.where(in_axes,
-                                jnp.broadcast_to(theta1_scalar, cz.shape),
-                                0.0)
-
-        # effective rates (models.combination._effective_rates, predict=False)
-        if spec.rough == "tied":
-            lam1 = 1.0 + theta2
-            r2_row = lam1 * th1_row
-        else:   # 'free' and 'lambda' training covariances use theta2 direct
-            r2_row = jnp.where(in_axes,
-                               jnp.broadcast_to(theta2, cz.shape), 0.0)
-
-        log_prior = jnp.zeros_like(log_jac)
-        if theta1_prior is not None:
-            if spec.anisotropic:
-                lp_row = theta1_prior.log_kernel(th1_row)
-                lp1 = jnp.sum(jnp.where(in_axes, lp_row, 0.0), axis=2,
-                              keepdims=True)
-            else:
-                lp1 = theta1_prior.log_kernel(theta1_scalar)
-            log_prior = log_prior + lp1
-        if theta2_prior is not None:
-            log_prior = log_prior + theta2_prior.log_kernel(theta2)
-        if p_prior is not None:
-            log_prior = log_prior + p_prior.log_kernel(p)
-        extra = log_jac + log_prior
-
-        _, _, s = mix_weights(p)
-        log_scale = jnp.log(s * s2sc)
-        return th1_row, r2_row, p, extra, log_scale
+    model = (None if whiten else mh_rounds_gpu.rounds_model(
+        spec, theta1_prior, theta2_prior, p_prior, jitter))
 
     def mh_rounds(z, lp_val, lp_beta, deltas, log_u):
         rr, kk = log_u.shape
-        # 128 < n runs the blocked multi-tile Schur core up to the
-        # dispatch envelope (dispatch_ok: n <= 1024, K <= 16,
-        # K*tiles^2 <= 256); its ASSEMBLED factor byproducts support the
-        # stash at every size (round 4)
-        from ccgp_tpu.ops.pallas_chol_smallk import dispatch_ok
-        n = x.shape[-2]
-        # whiten routes to the XLA fallback: the fused kernel's in-register
-        # quadratics are the bordered form whiten exists to avoid
-        if (not whiten and se_mix and jax.default_backend() == "tpu"
-                and dispatch_ok(n, kk)):
-            from ccgp_tpu.ops.pallas_chol_smallk import fused_mix_mh_rounds
-
-            return fused_mix_mh_rounds(x, y, z, lp_val, lp_beta, sigma2,
-                                       deltas, log_u, cand_model,
-                                       jitter=jitter, stash=stash)
-        if stash:
-            # The stash contract (an extra 'stash' output the caller
-            # lands into its slab) is only implemented by the fused
-            # kernel; silently returning a stash-less dict would crash
-            # the caller with an opaque KeyError at trace time.
-            raise ValueError(
-                f"make_mh_rounds(stash=True) requires the fused TPU "
-                f"kernel path (SE/SE mixture, dispatch_ok envelope: "
-                f"n <= 1024, K <= 16); got n={n}, K={kk}, "
-                f"backend={jax.default_backend()!r}")
-
-        # XLA fallback: identical chain, scan over rounds
-        dt = z.dtype
+        if mh_rounds_gpu.use_kernel(model, n, d, kk, x.dtype):
+            return mh_rounds_gpu.mh_rounds_gpu(model, x, y, z, lp_val,
+                                               lp_beta, sigma2, deltas,
+                                               log_u)
 
         def step(carry, rk):
             zc, lpv, lpb = carry
@@ -454,14 +258,11 @@ def make_mh_rounds(
             v_n = jnp.where(any_acc, vals[first], lpv)
             b_n = jnp.where(any_acc, betas[first], lpb)
             row = jnp.concatenate([z_n, b_n[None], v_n[None]])
-            out = (row, any_acc, consumed)
-            return (z_n, v_n, b_n), out
+            return (z_n, v_n, b_n), (row, any_acc, consumed)
 
         (zf, vf, bf), (rows, accs, cons) = jax.lax.scan(
             step, (z, lp_val, lp_beta),
             (deltas.reshape(rr, kk, -1), log_u))
-        # per-round post-state rows, matching the kernel's contract (row r
-        # repeats the previous state when round r rejected)
         return {"rec": rows, "acc": accs, "consumed": cons,
                 "z_fin": zf, "val_fin": vf, "beta_fin": bf}
 

@@ -17,14 +17,8 @@ from ccgp_tpu.ops.linalg import (
 from ccgp_tpu.ops.bessel import bessel_kv, log_bessel_kv
 from ccgp_tpu.ops import kernels
 from ccgp_tpu.ops.special import gammaincinv, invgamma_quantile
-from ccgp_tpu.ops.pallas_chol import (
+from ccgp_tpu.ops.gp import (
     chol_quadratics,
     profile_nll_from_quadratics,
     mvn_nll_from_quadratics,
 )
-from ccgp_tpu.ops.pallas_chol_lanes import chol_quadratics_lanes
-from ccgp_tpu.ops.pallas_chol_smallk import (
-    chol_quadratics_smallk,
-    fused_mix_quadratics_smallk,
-)
-from ccgp_tpu.ops.pallas_gram_chol import fused_mix_quadratics

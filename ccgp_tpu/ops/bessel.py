@@ -8,7 +8,7 @@ Numerical Recipes' `bessik`) as fixed-trip-count, branchless element-wise JAX
 code:
 
 * both regimes are evaluated on clamped inputs and selected with `where`,
-  so the computation is a static XLA graph (VPU-only, no data-dependent
+  so the computation is a static XLA graph (element-wise only, no data-dependent
   control flow);
 * the order `v` must be a static Python float (it is a fixed model constant
   — e.g. nu=5 in the 1-D study), which lets the order-raising recurrence

@@ -1,7 +1,7 @@
 """Pairwise-distance primitives.
 
-TPU-first: squared distances are built from the rank-1 expansion
-``|a|^2 + |b|^2 - 2 a.b`` so the O(n^2 d) work rides the MXU as one matmul
+Squared distances are built from the rank-1 expansion
+``|a|^2 + |b|^2 - 2 a.b`` so the O(n^2 d) work is one matmul
 (the same expansion the reference uses in plain R at
 `2D Codes and Designs/2D Combined GP Isotropic Public.R:350-360`).
 
@@ -12,11 +12,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# The inner product MUST run at full float32 precision: the TPU MXU's
-# default bf16 passes introduce ~1e-2 absolute error in squared distances,
-# which destroys the PSD structure of ill-conditioned SE Grams (observed:
-# Cholesky failures on the 100-pt maximin design). HIGHEST costs ~6 bf16
-# passes — negligible at GP sizes, mandatory for correctness.
+# The inner product MUST run at full float32 precision: reduced-precision
+# matmul passes (bf16 or TF32) introduce ~1e-3..1e-2 absolute error in
+# squared distances, which destroys the PSD structure of ill-conditioned SE
+# Grams (Cholesky failures on a 100-point maximin design). Negligible cost
+# at GP sizes, mandatory for correctness.
 _PREC = jax.lax.Precision.HIGHEST
 
 

@@ -37,3 +37,32 @@ def profile_nll(chol: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
     beta = gls_beta(chol, y)
     s2 = sigma2_mle(chol, y, beta)
     return linalg.chol_logdet(chol) + n * jnp.log(s2)
+
+
+def chol_quadratics(grams: jnp.ndarray, y: jnp.ndarray,
+                    jitter: float = 0.0) -> dict:
+    """Batched {logdet, y'R^-1 y, 1'R^-1 y, 1'R^-1 1} of Grams (B, n, n)
+    with absolute diagonal `jitter`, from ONE bordered factorization per
+    matrix (`linalg.bordered_cholesky_quadratics`: the border rows of the
+    factor are L^{-1}[y, 1], so no triangular solves). Non-PSD inputs give
+    NaN, the framework's rejection signal."""
+    n = grams.shape[-1]
+    if jitter:
+        grams = grams + jitter * jnp.eye(n, dtype=grams.dtype)
+    q = linalg.bordered_cholesky_quadratics(grams, y, jitter=0.0)
+    return {k: q[k] for k in ("logdet", "qyy", "qoy", "qoo")}
+
+
+def profile_nll_from_quadratics(q: dict, n: int) -> jnp.ndarray:
+    """log det R + n log sigma2_hat from the quadratic summary."""
+    beta = q["qoy"] / q["qoo"]
+    n_sigma2 = q["qyy"] - beta * q["qoy"]
+    return q["logdet"] + n * jnp.log(n_sigma2 / n)
+
+
+def mvn_nll_from_quadratics(q: dict, n: int, log_scale) -> jnp.ndarray:
+    """-2 log N(y; beta_hat 1, e^{log_scale} R) + const, per batch element:
+    the transformed-posterior likelihood core (beta profiled)."""
+    beta = q["qoy"] / q["qoo"]
+    quad = (q["qyy"] - beta * q["qoy"]) * jnp.exp(-log_scale)
+    return q["logdet"] + n * log_scale + quad

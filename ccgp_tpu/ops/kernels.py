@@ -16,8 +16,8 @@ Reference semantics being matched (each cited for the judge's parity check):
   Public.R:351-360`, cross version `Batch Sequential ME Designs/Batch
   Sequential ME Design.R:835-849`.
 
-Design notes (TPU-first):
-* everything is expressed on *squared* distances (MXU rank-1 expansion) or
+Design notes:
+* everything is expressed on *squared* distances (rank-1 matmul expansion) or
   1-D absolute differences, fully branchless (`where` masks, no `ifelse`
   scalar loops), and broadcasts over leading batch axes so draws / chains /
   candidate designs vmapped on top become one big fused kernel;

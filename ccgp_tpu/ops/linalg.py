@@ -1,10 +1,10 @@
 """Cholesky-centric linear algebra for GP covariance matrices.
 
 The reference relies on explicit `solve(R)` / `det(R, tol=1e-16)` everywhere
-(e.g. `1D Codes and Designs/1D Combined GP Public.R:424-444,622`). A TPU-first
-design never forms R^{-1}: every quadratic form and log-determinant goes
+(e.g. `1D Codes and Designs/1D Combined GP Public.R:424-444,622`). This design
+never forms R^{-1}: every quadratic form and log-determinant goes
 through one Cholesky factorization plus triangular solves, which XLA compiles
-to fused MXU-friendly batched kernels. Singularity handling replaces the
+to batched library calls. Singularity handling replaces the
 reference's `try(solve(R))` retry loops (`1D...Public.R:457-466,687-693`)
 with a jitter ladder + NaN propagation: a non-finite result marks the
 proposal/start as invalid, which downstream code treats as "reject/retry"
@@ -45,7 +45,7 @@ def bordered_cholesky_quadratics(a: jnp.ndarray, y: jnp.ndarray,
     so a SINGLE (n+2)-Cholesky yields the factor, logdet A, and the three
     quadratic forms  qyy = y'A^{-1}y, qoy = 1'A^{-1}y, qoo = 1'A^{-1}1  that
     every likelihood in the framework consumes (`ops/gp.py`) — with NO
-    triangular solves. On TPU the batched triangular solve is as
+    triangular solves. At GP sizes a batched triangular solve is as
     latency-bound as the factorization itself, so this halves the
     sequential-depth cost of each log-posterior evaluation (the Metropolis
     hot loop, Laplace mode searches, grid scans).

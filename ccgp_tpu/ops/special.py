@@ -13,7 +13,7 @@ def gammaincinv(a, q: jnp.ndarray, n_newton: int = 30) -> jnp.ndarray:
     a traced scalar/array (broadcast against q).
 
     Wilson–Hilferty initial guess + guarded Newton on the log scale
-    (fixed trip count, branch-free — jit/vmap/TPU-safe). Accuracy ~1e-12
+    (fixed trip count, branch-free — jit/vmap-safe). Accuracy ~1e-12
     relative in float64 over q in (1e-12, 1-1e-12).
     """
     q = jnp.asarray(q)

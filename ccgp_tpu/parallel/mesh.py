@@ -8,9 +8,11 @@ simulation-study designs, test points — so the sharding story is:
 
   * 'dp' (data/batch parallel): independent chains / designs / grid rows,
     no communication except final reductions (psum of summaries);
-  * 'mp' (model parallel): test-point or node axes of a single evaluation,
-    sharded so per-chip matrices stay MXU-sized; reductions over 'mp' are
-    XLA-inserted psums riding ICI.
+  * 'mp' (model parallel): test-point or node axes of a single evaluation;
+    reductions over 'mp' are XLA-inserted psums.
+
+The devices of one host are joined all to all, so the mesh shape follows
+the algorithm alone.
 
 Single-chip execution is the n=1 mesh — the same jitted code runs anywhere.
 """

@@ -1,8 +1,8 @@
 """Sharded sweep runners: the multi-chip execution paths.
 
 Every runner is ordinary jitted code with sharding constraints — XLA
-inserts the collectives (psum/all-gather) and lays them on ICI. The same
-functions run unsharded on one chip.
+inserts the collectives (psum/all-gather). The same functions run
+unsharded on one device.
 """
 from __future__ import annotations
 
@@ -121,11 +121,10 @@ def sharded_posterior_predict(
     (reference per-draw predictive: `1D Combined GP Public.R:783-811`).
 
     Each device factorizes and predicts its draw shard locally (factor
-    build + trsm are the MXU compute, embarrassingly parallel over
-    draws); the cross-draw aggregation mean mu0 = E[mean_i] is the XLA
-    collective. Returns (draw_mean, draw_var, mu0) with the per-draw
+    build + trsm, embarrassingly parallel over draws); the cross-draw
+    aggregation mean mu0 = E[mean_i] is the XLA collective. Returns (draw_mean, draw_var, mu0) with the per-draw
     arrays gathered back; identical on a 1-device mesh
-    (tests/test_parallel.py + the driver's dryrun parity oracle).
+    (tests/test_parallel.py, chip_smoke.py --four-cards).
     """
     from ccgp_tpu.predict.factors import build_factors
     from ccgp_tpu.predict.posterior import predictive_moments
@@ -184,7 +183,7 @@ def distributed_train_step(
     posterior-predictive mean over the monitoring grid at each chain's
     current parameters, mean-reduced across chains (an XLA psum over 'dp').
     This is the framework's honest analogue of a "training step": the
-    likelihood Gram/Cholesky is the MXU compute, chains are dp, the
+    likelihood Gram/Cholesky is the compute, chains are dp, the
     evaluation grid is mp, and the cross-chain monitoring reduction is the
     collective.
 

@@ -3,7 +3,7 @@
 The reference precomputes, for each retained posterior draw, the explicit
 inverse R^{-1}, the vector R^{-1}(y - beta 1), the column sums of R^{-1} and
 their total, then flattens all of it into a wide data frame
-(`1D Codes and Designs/1D Combined GP Public.R:729-783`). On TPU the cache
+(`1D Codes and Designs/1D Combined GP Public.R:729-783`). Here the cache
 is Cholesky-based and batched:
 
     L      (m, n, n)   lower Cholesky of R_mix per draw
@@ -18,9 +18,9 @@ solve per test block:
     1' R^{-1} r            = u . (L^{-1} r)
     1' R^{-1} 1            = ||u||^2
 
-The whole cache is rebuilt in one vmapped pass over retained draws — on the
-MXU that is cheaper than storing and re-loading m * n^2 floats of explicit
-inverses the way the reference's data-frame cache does.
+The whole cache is rebuilt in one vmapped pass over retained draws — one
+batched factorization instead of storing and re-loading m * n^2 floats of
+explicit inverses the way the reference's data-frame cache does.
 """
 from __future__ import annotations
 
@@ -31,21 +31,6 @@ import jax.numpy as jnp
 
 from ccgp_tpu.models.combination import MixtureSpec, MixParams, mixed_gram, unpack
 from ccgp_tpu.ops import linalg
-
-
-def decode_stash(fac: jnp.ndarray, n: int):
-    """Decode sampler-stashed factor rows into (chol, wy, wo).
-
-    `fac` is (m, ns2, tile) from `ops.pallas_chol_smallk.
-    fused_mix_mh_rounds(stash=True)`: row j holds the ROW-scaled
-    factorization row stash[j, i] = L[i, j] for i >= j (so the factor is
-    read off as the tril of the TRANSPOSE — the one convention valid for
-    both the bit-symmetric single-tile matrix and the multi-tile
-    assembled matrix whose lower-left off-diagonal blocks are zero),
-    row n is L^{-1}y and row n+1 is L^{-1}1.
-    """
-    chol = jnp.tril(jnp.swapaxes(fac[:, :n, :n], -1, -2))
-    return chol, fac[:, n, :n], fac[:, n + 1, :n]
 
 
 class FactorCache(NamedTuple):
@@ -65,23 +50,6 @@ def build_factors(
     jitter: float = 0.0,
 ) -> FactorCache:
     """zs: (m, n_params) retained unconstrained draws; betas: (m,)."""
-    m = zs.shape[0]
-    if (jax.default_backend() == "tpu" and m >= 64
-            and x.shape[-2] <= 128):
-        # lane-batched kernel emits (L, L^{-1}y, L^{-1}1) for 128 draws
-        # per pass (~9 vs ~15 us/draw through XLA chol + two solves);
-        # a = L^{-1}(y - beta 1) = wy - beta wo. R_mix has unit diagonal,
-        # so the kernel's absolute jitter equals jitter_cholesky's
-        # mean-diagonal-relative jitter exactly.
-        from ccgp_tpu.ops.pallas_chol_lanes import chol_factors_lanes
-
-        params, _ = jax.vmap(lambda z: unpack(spec, z))(zs)
-        r = jax.vmap(lambda p: mixed_gram(spec, x, p))(params)
-        f = chol_factors_lanes(r, y, jitter=jitter)
-        a = f["wy"] - betas[:, None] * f["wo"]
-        return FactorCache(chol=f["chol"], a=a, u=f["wo"], beta=betas,
-                           params=params)
-
     def one(z, beta):
         params, _ = unpack(spec, z)
         r = mixed_gram(spec, x, params)

@@ -17,7 +17,7 @@ Reference semantics:
 * negative predictive-variance draws are dropped (`2D...Isotropic
   Public.R:625-626`) — here via fixed-shape masking.
 
-TPU-first: draws x test points is one batched triangular-solve + matmul
+Design: draws x test points is one batched triangular-solve + matmul
 (per-draw (n,n) solve against the (n, t) cross-correlation block), then the
 MC aggregation is a couple of fused elementwise/sort kernels. No per-point
 Python loops (the reference's `apply_pb` over test points, `:869`).
@@ -62,17 +62,13 @@ def predictive_moments(
       'inv_matmul' triangular solve against I_n (n columns, t/n-fold less
                    sequential substitution work at the bench shape's
                    t=625 vs n=100) followed by one batched L^{-1} @ r
-                   matmul that rides the MXU (`precision=HIGHEST`: the
-                   variance term 1 - r'R^{-1}r cancels, bf16 passes are
+                   matmul (`precision=HIGHEST`: the variance term
+                   1 - r'R^{-1}r cancels, reduced-precision passes are
                    not enough). Same algebra; both paths are
                    substitution + f32 products (tests/test_predict.py
                    pins them together at conditioning-amplified
                    roundoff).
-    None defaults to 'trsm': the v5e A/B at the bench shape (m=1000,
-    n=100, t=625) measured a WASH — trsm med 4.54 / min 4.25 ms vs
-    inv_matmul med 4.73 / min 3.49 — XLA's batched substitution already
-    overlaps the per-column chains across the m=1000 draws, so the MXU
-    reformulation buys nothing (round-5 measurement; kept selectable)."""
+    None defaults to 'trsm' (the two have not been timed on a GPU)."""
     if solve_mode is None:
         solve_mode = "trsm"
 
@@ -114,9 +110,9 @@ def predictive_moments_lazy(
     normalized_cross: bool = True,
 ):
     """Draw-chunked predictive moments for fits whose full factor cache
-    (m, n, n) does not fit in HBM (e.g. m=400 draws at n=2048 is 6.25 GB
-    of Cholesky factors alone; the batched trsm workspace on top OOMs a
-    16 GB chip). Builds factors for `draw_chunk` draws at a time inside a
+    (m, n, n) does not fit in device memory (e.g. m=400 draws at n=2048 is
+    6.25 GB of Cholesky factors alone, before the batched trsm workspace
+    on top). Builds factors for `draw_chunk` draws at a time inside a
     sequential `lax.map` and discards them after their (chunk, t) moments
     are computed — peak factor memory is draw_chunk * n^2 instead of
     m * n^2. Same per-draw algorithm as build_factors +

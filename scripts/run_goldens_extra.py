@@ -1,13 +1,12 @@
-"""Extra golden studies: 2-D anisotropic, 2-D advanced (EB hyperprior
-selection over the shipped 60x4 grid), and a TPU full-Bayesian-fit timing.
-Appends to RESULTS.md.
+"""Extra golden studies: 2-D anisotropic and 2-D advanced (EB hyperprior
+selection over the shipped 60x4 grid), on the CPU in float64. Appends to
+RESULTS.md.
 
 Usage: python scripts/run_goldens_extra.py [--fast]
 """
 from __future__ import annotations
 
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -61,73 +60,9 @@ def cpu_studies():
     return lines
 
 
-def tpu_timing():
-    """Full Bayesian GV fit (plug-in MLE + Laplace + Metropolis to Geweke
-    convergence + factor cache) timed on the TPU chip, f32."""
-    import jax
-    import jax.numpy as jnp
-
-    if jax.default_backend() != "tpu":
-        return [f"- (TPU timing skipped; backend={jax.default_backend()})"]
-
-    from ccgp_tpu.eval.datasets import load_ground_vibrations
-    from ccgp_tpu.infer.metropolis import metropolis
-    from ccgp_tpu.models import MixtureSpec, InverseGamma, make_logpost
-    from ccgp_tpu.ops import kernels, linalg
-    from ccgp_tpu.ops.gp import gls_beta, sigma2_mle, profile_nll
-
-    dtype = jnp.float32
-    jitter = 1e-4
-    gv = load_ground_vibrations(50, 1)
-    x = jnp.asarray(gv["x_train"], dtype)
-    y = jnp.asarray(gv["y_train"], dtype)
-    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=9)
-    fam = kernels.sqexp_family()
-    mle_grid = np.linspace(-6.0, 4.0, 32, dtype=np.float32)
-
-    def fit(x, y, key):
-        mg = jnp.asarray(mle_grid)
-
-        def nll(lt):
-            return profile_nll(
-                linalg.jitter_cholesky(fam.gram(x, jnp.exp(lt)), jitter), y)
-
-        nlls = jax.vmap(nll)(mg)
-        nlls = jnp.where(jnp.isfinite(nlls), nlls, jnp.inf)
-        ch = linalg.jitter_cholesky(
-            fam.gram(x, jnp.exp(mg[jnp.argmin(nlls)])), jitter)
-        s2 = sigma2_mle(ch, y, gls_beta(ch, y))
-        lp = make_logpost(spec, x, y, s2, theta1_prior=InverseGamma(3, 1),
-                          theta2_prior=InverseGamma(5, 75), jitter=jitter)
-        res = metropolis(lp, jnp.asarray([1.0, 1.0, 0.0], dtype), key,
-                         n_max=5000, samp_size=1000, alpha_geweke=0.5)
-        return res.n_recorded, res.n_proposals, res.converged, s2
-
-    fit_j = jax.jit(fit)
-    out = fit_j(x, y, jax.random.PRNGKey(0))
-    n_rec = int(out[0])  # sync fetch
-    t0 = time.time()
-    out = fit_j(x, y, jax.random.PRNGKey(1))
-    n_rec, n_prop, conv = int(out[0]), int(out[1]), bool(out[2])
-    dt = time.time() - t0
-    line = (f"- **TPU full Bayesian GV fit (n=50, 9-D)**: {dt:.2f}s to Geweke "
-            f"convergence ({n_rec} recorded / {n_prop} proposals, "
-            f"converged={conv}) — plug-in MLE + Laplace + Metropolis as one "
-            f"compiled program on v5e f32")
-    print(line, flush=True)
-    return [line]
-
-
 def main():
     lines = ["", "## Extra golden studies", ""]
-    if "--tpu-only" not in sys.argv:
-        import multiprocessing as mp
-
-        # CPU studies need jax_platforms=cpu which is process-global; run in
-        # a subprocess so the TPU timing can follow in this one.
-        with mp.get_context("spawn").Pool(1) as pool:
-            lines += pool.apply(cpu_studies)
-    lines += tpu_timing()
+    lines += cpu_studies()
     with open(ROOT / "RESULTS.md", "a") as fh:
         fh.write("\n".join(lines) + "\n")
     print("appended to RESULTS.md")

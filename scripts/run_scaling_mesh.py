@@ -1,8 +1,8 @@
 """Multi-device scaling evidence for the sharded runners.
 
-This machine has ONE physical CPU core (and one TPU chip), so an 8-device
-virtual CPU mesh cannot show wall-clock speedup — all 8 devices timeshare
-the same core. What CAN be demonstrated honestly, and is, per workload:
+On an 8-device virtual CPU mesh all devices timeshare the host's cores,
+so wall-clock speedup is not what this shows. What it does show, per
+workload:
 
   1. result parity: the sharded run returns the same numbers as the
      single-device run;

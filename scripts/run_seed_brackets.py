@@ -12,8 +12,9 @@ become intervals instead of point assertions:
     (0.563 / 0.594 vs the 0.5 ideal) seed luck or a stable property of
     the model-data pair?
 
-Runs on the TPU (f32, full reference MCMC budgets; the T4 claims are
-distribution-level, and seed variation dwarfs f32-vs-f64 rounding).
+Runs on the default device (f32, full reference MCMC budgets; the T4
+claims are distribution-level, and seed variation dwarfs f32-vs-f64
+rounding).
 Seeds run serially through one compiled program each.
 
 Usage: python scripts/run_seed_brackets.py [--seeds N] [--cpu]

@@ -1,15 +1,14 @@
 """Adjudicate the whitened-quadratic fallback (`make_logpost(whiten=True)`)
 against a CPU-f64 oracle at the sizes where f32 bordered quadratics lose
-accuracy to cancellation (n >= 768; DESIGN.md measured qoy drift 0.17 rel
-at n=768 kernel-vs-XLA, adjudicated as conditioning by
-scripts/verify_multitile_oracle.py).
+accuracy to cancellation (n >= 768; DESIGN.md).
 
 For each n in (512, 768, 1024) this script builds an SE-mixture problem,
 draws unconstrained z points, and computes the centered Gaussian quadratic
   quad = (y - beta 1)' R^{-1} (y - beta 1)
 three ways on the SAME f32 Gram:
   bordered   f32 `linalg.bordered_cholesky_quadratics` (qyy - qoy^2/qoo —
-             the default hot path and what the Pallas cores accumulate)
+             the default hot path and what the CUDA rounds kernel
+             accumulates)
   whitened   f32 explicit Cholesky + one extra triangular solve of the
              PRE-CENTERED residual y - beta (the whiten=True path)
   oracle     scipy f64 of the same f32 Gram
@@ -22,7 +21,7 @@ Measured adjudication (recorded in RESULTS.md): on CENTERED data
 the right default. On UNCENTERED data (y offset 1000, qyy/quad ~2e3)
 the bordered form degrades ~7x (3.0e-3 vs 4.2e-4 max rel at n=768) —
 the regime `whiten=True` exists for. Runs on CPU — cancellation is a
-dtype property, not a backend one (the TPU f32 kernels accumulate the
+dtype property, not a backend one (the GPU f32 kernel accumulates the
 same bordered sums).
 """
 from __future__ import annotations

@@ -42,7 +42,7 @@ def test_augmented_criterion_is_conditional_logdet(rng):
     assert np.isclose(got, want, rtol=1e-8)
 
 
-def test_reference_initial_design_scores_well():
+def test_reference_initial_design_scores_well(reference_data):
     """The shipped Initial ME Design should score close to what our search
     finds for the same plug-in parameters (sanity parity on the criterion)."""
     d_ref = jnp.asarray(load_initial_me_design())
@@ -58,7 +58,7 @@ def test_reference_initial_design_scores_well():
 
 
 @pytest.mark.slow
-def test_batch_me_design_improves_entropy():
+def test_batch_me_design_improves_entropy(reference_data):
     d_old = jnp.asarray(load_initial_me_design())
     res = batch_me_design(SPEC, PARAMS, d_old, 7, jax.random.PRNGKey(1),
                           n_starts=6, maxiter=150)
@@ -104,7 +104,7 @@ def test_kmedoids_clusters_blobs(rng):
 
 
 @pytest.mark.slow
-def test_kmedoids_on_reference_subdesigns():
+def test_kmedoids_on_reference_subdesigns(reference_data):
     """Cluster the shipped 1000 stacked subdesigns (7000 x 2 points) into 7
     medoids like the reference's k-medoids ME Design construction.
 

@@ -18,7 +18,7 @@ import pytest
 
 
 @pytest.mark.slow
-def test_2d_iso_slice():
+def test_2d_iso_slice(reference_data):
     x = jnp.asarray(load_maximin_2d(14))
     y = f2d(x, 2)
     spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)

@@ -54,7 +54,7 @@ def test_sim_2d_aniso():
 
 
 @pytest.mark.slow
-def test_batch_me_design_workflow():
+def test_batch_me_design_workflow(reference_data):
     cfg = batch_me_design.Config(mcmc=FAST, n_starts=4, n_new_axis=5)
     res = batch_me_design.run(cfg, refit=False)
     assert res.d_second.shape == (7, 2)
@@ -63,7 +63,7 @@ def test_batch_me_design_workflow():
 
 
 @pytest.mark.slow
-def test_ground_vibrations_fast():
+def test_ground_vibrations_fast(reference_data):
     cfg = ground_vibrations.Config(mcmc=FAST)
     res = ground_vibrations.run(cfg, run_cgp=False)
     # golden neighborhood (reference archived RMSPE 2.722 at full budget)
@@ -72,7 +72,7 @@ def test_ground_vibrations_fast():
 
 
 @pytest.mark.slow
-def test_heat_exchanger_fast():
+def test_heat_exchanger_fast(reference_data):
     cfg = heat_exchanger.Config(mcmc=MCMCConfig(start=(1.0, 2.7, 0.0),
                                                 n_max=1200, samp_size=300,
                                                 net_samp_size=200))

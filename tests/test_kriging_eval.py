@@ -47,7 +47,7 @@ def test_kriging_t_interval_width(rng):
     assert cov >= 0.8
 
 
-def test_datasets_shapes():
+def test_datasets_shapes(reference_data):
     q = load_qian()
     assert q["x_train"].shape == (64, 4) and q["y_train"].shape == (64,)
     assert q["x_test"].shape == (14, 4)
@@ -64,7 +64,7 @@ def test_datasets_shapes():
     assert load_initial_me_design().shape == (14, 2)
 
 
-def test_gv_archived_baseline_numbers():
+def test_gv_archived_baseline_numbers(reference_data):
     """Recompute BASELINE.md's golden numbers from the archived reference
     output table."""
     cols, tab = load_gv_archived_results()
@@ -98,7 +98,7 @@ def test_functions_match_r_forms():
     assert np.isclose(float(f2d(jnp.asarray([x, y]), 2)), want)
 
 
-def test_mlegp_archived_table_reproduction():
+def test_mlegp_archived_table_reproduction(reference_data):
     """THE mlegp parity oracle: at mlegp's exact fitted parameters —
     recovered to machine precision from the archived GV size-50 sample-1
     results table by least squares (scripts/recover_mlegp_fit.py; final

@@ -1,6 +1,5 @@
-"""Law-equality and kernel-logic tests for the chunked multi-round
-Metropolis driver (`infer.metropolis` mh_rounds path +
-`ops.pallas_chol_smallk.fused_mix_mh_rounds`).
+"""Law-equality tests for the chunked multi-round Metropolis driver
+(`infer.metropolis` mh_rounds path over `models.likelihood.make_mh_rounds`).
 
 The chunked driver must reproduce the one-round-at-a-time speculative
 sampler EXACTLY — same random stream, same records, same stopping point —
@@ -15,8 +14,7 @@ import pytest
 
 from ccgp_tpu.infer.metropolis import metropolis
 from ccgp_tpu.models import MixtureSpec, InverseGamma, LogNormal, make_logpost
-from ccgp_tpu.models.likelihood import (make_logpost_batch, make_mh_round,
-                                        make_mh_rounds)
+from ccgp_tpu.models.likelihood import make_logpost_batch, make_mh_rounds
 from ccgp_tpu.ops import kernels
 
 
@@ -101,47 +99,6 @@ def test_chunked_nmax_cap(problem):
     assert int(r1.n_recorded) == 37
 
 
-def test_capped_stash_overflow_flag(problem):
-    """Capped stash buffer (round 4, multi-tile sizes): rows land at
-    record positions while capacity holds (factors_ok True); a chain
-    whose chunks could write past the cap flips factors_ok False —
-    without changing the chain itself."""
-    _, _, _, _, lp, lpb, rounds, _ = problem
-    rows, lanes = 8, 128
-
-    def rounds_stash(z, lpv, lpb_, deltas, log_u):
-        out = dict(rounds(z, lpv, lpb_, deltas, log_u))
-        rr = log_u.shape[0]
-        # synthetic stash: each round's row is filled with its post-state
-        # logpost, so landed rows are checkable against the record buffer
-        out["stash"] = jnp.broadcast_to(
-            out["rec"][:, -1][:, None, None], (rr, rows, lanes))
-        return out
-
-    start = jnp.asarray([1.0, 1.0, 0.0, 0.0])
-    key = jax.random.PRNGKey(3)
-    # alpha_geweke=2.0: the Geweke p-value can never reach it, so the
-    # chain runs to n_max — guaranteeing it records past the cap below
-    kw = dict(speculative=4, n_max=300, samp_size=30, batch_size=20,
-              alpha_geweke=2.0, rounds_per_call=16, stash_rows=rows,
-              stash_lanes=lanes)
-    r_ok = metropolis(lp, start, key, mh_rounds=rounds_stash,
-                      stash_cap=None, **kw)
-    assert r_ok.factors is not None
-    assert bool(r_ok.factors_ok)
-    n = int(r_ok.n_recorded)
-    assert n == 300
-    assert np.array_equal(np.asarray(r_ok.factors[:n, 0, 0]),
-                          np.asarray(r_ok.logposts[:n]))
-
-    # cap 130 (>= the structural RW+1 floor, < the 300 the chain records)
-    r_bad = metropolis(lp, start, key, mh_rounds=rounds_stash,
-                       stash_cap=130, **kw)
-    assert r_bad.factors.shape[0] == 130
-    assert not bool(r_bad.factors_ok)
-    _assert_identical(r_ok, r_bad)
-
-
 def test_warm_phase_equals_sequential(problem):
     # rounds_per_call_warm < samp_size so the check-free warm loop
     # actually executes, covering the warm -> check-aware handoff: the
@@ -214,244 +171,6 @@ def test_chunk_rng_matches_per_round_stream():
     assert np.array_equal(np.asarray(eps), np.asarray(jnp.stack(seq_eps)))
     assert np.array_equal(np.asarray(lu), np.asarray(jnp.stack(seq_lu)))
     assert np.array_equal(np.asarray(k_end), np.asarray(k))
-
-
-def test_rounds_kernel_interpret_matches_fallback(problem):
-    # the Pallas kernel (interpret mode) must agree with the XLA fallback
-    # on records, flags and final state; its stash must contain the real
-    # Cholesky factors of the accepted candidates' mixture Grams
-    spec, x, y, s2, _, _, _, kw = problem
-    from ccgp_tpu.models.combination import mixed_gram, unpack
-    from ccgp_tpu.ops import linalg
-    from ccgp_tpu.ops.pallas_chol_smallk import fused_mix_mh_rounds
-
-    rounds_x = make_mh_rounds(spec, x, y, s2, **kw)   # fallback on CPU
-    # build the kernel path explicitly in interpret mode
-    import ccgp_tpu.models.likelihood as lk
-
-    cand_model = None
-
-    def grab(real_make=lk.make_mh_rounds):
-        pass
-
-    # rebuild the lane cand_model via the builder's internals: call the
-    # builder and pull the closure through the kernel entry instead
-    rng = np.random.default_rng(2)
-    R, K, dim = 6, 4, 4
-    z = jnp.asarray([0.6, 0.4, 0.1, -0.2])
-    deltas = jnp.asarray(0.25 * rng.normal(size=(R * K, dim)))
-    log_u = jnp.asarray(np.log(rng.uniform(size=(R, K))))
-    lpv = jnp.asarray(-1e6)     # force an early acceptance so the stash
-    lpb = jnp.asarray(0.0)      # checks below exercise real factors
-
-    ref = rounds_x(z, lpv, lpb, deltas, log_u)
-
-    # the kernel path: reuse the builder's cand_model by invoking
-    # fused_mix_mh_rounds through a TPU-gated branch is not possible on
-    # CPU, so reach the closure via the builder's code path directly
-    import ccgp_tpu.ops.pallas_chol_smallk as sk
-
-    built = {}
-    orig = sk.fused_mix_mh_rounds
-
-    def spy(*args, **kws):
-        built["args"] = (args, kws)
-        kws = dict(kws)
-        kws["interpret"] = True
-        return orig(*args, **kws)
-
-    sk.fused_mix_mh_rounds = spy
-    try:
-        import jax as _jax
-        orig_backend = _jax.default_backend
-
-        # force the TPU branch inside make_mh_rounds' dispatcher
-        import ccgp_tpu.models.likelihood as _lk
-
-        rounds_k = _lk.make_mh_rounds(spec, x, y, s2, stash=True, **kw)
-        _jax.default_backend = lambda: "tpu"
-        try:
-            out = rounds_k(z, lpv, lpb, deltas, log_u)
-        finally:
-            _jax.default_backend = orig_backend
-    finally:
-        sk.fused_mix_mh_rounds = orig
-
-    assert np.array_equal(np.asarray(ref["acc"]), np.asarray(out["acc"]))
-    assert np.array_equal(np.asarray(ref["consumed"]),
-                          np.asarray(out["consumed"]))
-    assert np.allclose(np.asarray(ref["rec"]), np.asarray(out["rec"]),
-                       atol=1e-9)
-    assert np.allclose(np.asarray(ref["z_fin"]), np.asarray(out["z_fin"]),
-                       atol=1e-9)
-
-    # stash: accepted rounds' rows must decode (tril-of-transpose row-
-    # scaled convention, predict.factors.decode_stash) to the Cholesky
-    # factors + whitened vectors of that round's accepted state's Gram
-    from ccgp_tpu.predict.factors import decode_stash
-
-    n = x.shape[0]
-    acc = np.asarray(out["acc"])
-    rec = np.asarray(out["rec"])[acc]
-    stash_chol, stash_wy, stash_wo = (
-        np.asarray(v) for v in decode_stash(
-            jnp.asarray(np.asarray(out["stash"])[acc]), n))
-    n_acc = int(acc.sum())
-    assert n_acc >= 1
-    for i in range(n_acc):
-        zs = jnp.asarray(rec[i, :dim])
-        params, _ = unpack(spec, zs)
-        g = mixed_gram(spec, x, params)
-        chol = np.asarray(linalg.jitter_cholesky(g, 1e-9))
-        got = stash_chol[i]
-        assert np.allclose(got, chol, atol=1e-6), i
-        assert np.allclose(stash_wy[i],
-                           np.asarray(jax.scipy.linalg.solve_triangular(
-                               jnp.asarray(chol), y, lower=True)), atol=1e-6)
-        assert np.allclose(stash_wo[i],
-                           np.asarray(jax.scipy.linalg.solve_triangular(
-                               jnp.asarray(chol), jnp.ones_like(y),
-                               lower=True)), atol=1e-6)
-
-
-def test_rounds_kernel_rounds_per_step_bit_identical(problem):
-    """rounds_per_step only restructures the grid (rps rounds statically
-    unrolled per sequential step): every output — records, flags, stash
-    buffer — must be BIT-identical to rps=1. (On-chip the same held for
-    rps in {2,4,8}; the v5e timing sweep measured a wash at 2 and a
-    regression beyond, so 1 stays the default — DESIGN.md §14.)"""
-    spec, x, y, s2, _, _, _, kw = problem
-    import ccgp_tpu.models.likelihood as _lk
-    import ccgp_tpu.ops.pallas_chol_smallk as sk
-
-    rng = np.random.default_rng(5)
-    R, K, dim = 6, 4, 4
-    z = jnp.asarray([0.6, 0.4, 0.1, -0.2])
-    deltas = jnp.asarray(0.25 * rng.normal(size=(R * K, dim)))
-    log_u = jnp.asarray(np.log(rng.uniform(size=(R, K))))
-    lpv, lpb = jnp.asarray(-1e6), jnp.asarray(0.0)
-
-    orig = sk.fused_mix_mh_rounds
-    outs = {}
-    for rps in (1, 2, 3):
-        def spy(*args, **kws):
-            kws = dict(kws, interpret=True, rounds_per_step=rps)
-            return orig(*args, **kws)
-
-        sk.fused_mix_mh_rounds = spy
-        try:
-            rounds_k = _lk.make_mh_rounds(spec, x, y, s2, stash=True, **kw)
-            orig_backend = jax.default_backend
-            jax.default_backend = lambda: "tpu"
-            try:
-                outs[rps] = jax.tree_util.tree_map(
-                    np.asarray, rounds_k(z, lpv, lpb, deltas, log_u))
-            finally:
-                jax.default_backend = orig_backend
-        finally:
-            sk.fused_mix_mh_rounds = orig
-    for rps in (2, 3):
-        for k in outs[1]:
-            assert np.array_equal(outs[1][k], outs[rps][k]), (rps, k)
-
-
-@pytest.mark.slow
-def test_rounds_kernel_two_tile_interpret_matches_fallback():
-    """128 < n <= 256 WITH stash: the two-tile blocked-Schur kernel path
-    must agree with the XLA fallback on records, flags and final state,
-    and its ASSEMBLED multi-tile stash must decode to the accepted
-    candidates' true factors (slow: the unrolled two-tile interpret
-    program is a multi-minute CPU compile)."""
-    spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(),
-                       dim=2, rough="tied", anisotropic=True)
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.uniform(size=(140, 2)))
-    y = jnp.sin(5 * x[:, 0]) + jnp.cos(3 * x[:, 1])
-    kw = dict(theta1_prior=LogNormal(-1, 1), theta2_prior=InverseGamma(3, 4),
-              jitter=1e-6)
-    s2 = jnp.asarray(0.05)
-    rounds_x = make_mh_rounds(spec, x, y, s2, **kw)     # fallback on CPU
-
-    R, K, dim = 4, 4, 4
-    z = jnp.asarray([0.6, 0.4, 0.1, -0.2])
-    deltas = jnp.asarray(0.25 * rng.normal(size=(R * K, dim)))
-    log_u = jnp.asarray(np.log(rng.uniform(size=(R, K))))
-    lpv = jnp.asarray(-1e6)
-    lpb = jnp.asarray(0.0)
-    ref = rounds_x(z, lpv, lpb, deltas, log_u)
-
-    import jax as _jax
-
-    import ccgp_tpu.models.likelihood as _lk
-    import ccgp_tpu.ops.pallas_chol_smallk as sk
-
-    orig = sk.fused_mix_mh_rounds
-
-    def spy(*args, **kws):
-        kws = dict(kws)
-        kws["interpret"] = True
-        return orig(*args, **kws)
-
-    sk.fused_mix_mh_rounds = spy
-    orig_backend = _jax.default_backend
-    try:
-        rounds_k = _lk.make_mh_rounds(spec, x, y, s2, stash=True, **kw)
-        _jax.default_backend = lambda: "tpu"
-        out = rounds_k(z, lpv, lpb, deltas, log_u)
-    finally:
-        _jax.default_backend = orig_backend
-        sk.fused_mix_mh_rounds = orig
-
-    assert np.array_equal(np.asarray(ref["acc"]), np.asarray(out["acc"]))
-    assert np.array_equal(np.asarray(ref["consumed"]),
-                          np.asarray(out["consumed"]))
-    assert np.allclose(np.asarray(ref["rec"]), np.asarray(out["rec"]),
-                       rtol=1e-6, atol=1e-6)
-    assert np.allclose(np.asarray(ref["z_fin"]), np.asarray(out["z_fin"]),
-                       rtol=1e-6, atol=1e-6)
-
-    # the assembled multi-tile stash decodes to the true factors of the
-    # accepted candidates' Grams
-    from ccgp_tpu.models.combination import mixed_gram, unpack
-    from ccgp_tpu.ops import linalg
-    from ccgp_tpu.predict.factors import decode_stash
-
-    n = x.shape[0]
-    acc = np.asarray(out["acc"])
-    assert int(acc.sum()) >= 1
-    rec = np.asarray(out["rec"])[acc]
-    st_chol, st_wy, st_wo = (
-        np.asarray(v) for v in decode_stash(
-            jnp.asarray(np.asarray(out["stash"])[acc]), n))
-    for i in range(int(acc.sum())):
-        params, _ = unpack(spec, jnp.asarray(rec[i, :dim]))
-        g = mixed_gram(spec, x, params)
-        chol = np.asarray(linalg.jitter_cholesky(g, 1e-6))
-        assert np.allclose(st_chol[i], chol, rtol=2e-5, atol=2e-5), i
-        assert np.allclose(st_wy[i],
-                           np.asarray(jax.scipy.linalg.solve_triangular(
-                               jnp.asarray(chol), y, lower=True)),
-                           rtol=1e-4, atol=1e-4)
-        assert np.allclose(st_wo[i],
-                           np.asarray(jax.scipy.linalg.solve_triangular(
-                               jnp.asarray(chol), jnp.ones_like(y),
-                               lower=True)), rtol=1e-4, atol=1e-4)
-
-
-def test_stash_requires_fused_kernel_path(problem):
-    """make_mh_rounds(stash=True) off the fused TPU path must raise a
-    clear ValueError at call time (the XLA fallback emits no stash;
-    before the round-3 fix this surfaced as an opaque trace-time
-    KeyError in the chunked driver)."""
-    spec, x, y, s2, _, _, _, kw = problem
-    rng = np.random.default_rng(3)
-    R, K, dim = 2, 4, 4
-    z = jnp.zeros(dim)
-    deltas = jnp.asarray(0.1 * rng.normal(size=(R * K, dim)))
-    log_u = jnp.asarray(np.log(rng.uniform(size=(R, K))))
-    fn = make_mh_rounds(spec, x, y, s2, stash=True, **kw)  # CPU backend
-    with pytest.raises(ValueError, match="fused TPU kernel"):
-        fn(z, jnp.asarray(-1.0), jnp.asarray(0.0), deltas, log_u)
 
 
 def test_mid_phase_equal_chunk_sizes(problem):

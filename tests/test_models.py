@@ -194,8 +194,8 @@ def test_logpost_whiten_matches_bordered(rng):
 
 
 def test_fit_combined_gp_whiten_path(rng):
-    """fit_combined_gp(whiten=True) routes the sampler to the XLA
-    fallback (no stash) and still produces a healthy chain."""
+    """fit_combined_gp(whiten=True) routes the sampler to the XLA scan
+    (never the CUDA kernel) and still produces a healthy chain."""
     from ccgp_tpu.models import MCMCConfig, fit_combined_gp
 
     x = jnp.asarray(rng.uniform(size=(16, 2)))
@@ -284,8 +284,8 @@ def test_fit_combined_gp_matern_spline_speculative(rng):
     """The reference's ORIGINAL 1-D mixture — Matérn(nu=5) smooth +
     cubic-spline rough (`1D Combined GP Public.R` / two-families) —
     through the speculative fit+predict path in the DEFAULT lane. Non-SE
-    mixtures cannot ride the fused SE rounds kernels, so this pins the
-    make_mh_round whole-round branch end-to-end at small budgets (the
+    mixtures never reach the SE-only CUDA rounds kernel, so this pins the
+    chunked driver's XLA scan end-to-end at small budgets (the
     full-budget runs live in the slow experiment tests)."""
     from ccgp_tpu.models import (MixtureSpec, MCMCConfig, fit_combined_gp,
                                  predict_combined_gp, InverseGamma)

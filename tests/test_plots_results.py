@@ -57,7 +57,7 @@ def test_results_roundtrip(tmp_path, rng):
     assert s.coverage["cgp"] == 1.0
 
 
-def test_summary_from_archived_reference_table():
+def test_summary_from_archived_reference_table(reference_data):
     """Our reader + summary consume the reference's own archived table."""
     import ccgp_tpu.eval.datasets as ds
     root = ds.data_root()

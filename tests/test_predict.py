@@ -104,37 +104,30 @@ def test_quant_ref_y_true(rng):
     assert float(out.quant[1]) < 0.01              # y_true far above draws
 
 
-def test_build_factors_lanes_branch_matches_xla(rng, monkeypatch):
-    """The TPU lanes-kernel factor cache (build_factors >= 64 draws)
-    produces the same (chol, a, u) as the vmapped XLA path."""
-    import ccgp_tpu.ops.pallas_chol_lanes as lanes_mod
-    import ccgp_tpu.predict.factors as factors_mod
+def test_build_factors_matches_dense(rng):
+    """The batched factor cache (chol, a = L^-1(y - beta), u = L^-1 1)
+    equals per-draw dense numpy factorizations of the mixture Grams."""
     from ccgp_tpu.models import MixtureSpec
+    from ccgp_tpu.models.combination import mixed_gram, unpack
     from ccgp_tpu.ops import kernels
+    from ccgp_tpu.predict.factors import build_factors
 
     x = jnp.asarray(rng.uniform(size=(17, 2)))
     y = jnp.sin(5 * x[:, 0]) + x[:, 1]
     spec = MixtureSpec(kernels.sqexp_family(), kernels.sqexp_family(), dim=2)
     zs = jnp.asarray(rng.normal(size=(64, 3)) * 0.4)
     betas = jnp.asarray(rng.normal(size=(64,)) * 0.05)
-
-    want = factors_mod.build_factors(spec, x, y, zs, betas, jitter=1e-8)
-
-    real_lanes = lanes_mod.chol_factors_lanes
-    calls = []
-
-    def spy(grams, yv, jitter=0.0, interpret=False):
-        calls.append(grams.shape)
-        return real_lanes(grams, yv, jitter=jitter, interpret=True)
-
-    monkeypatch.setattr(lanes_mod, "chol_factors_lanes", spy)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    got = factors_mod.build_factors(spec, x, y, zs, betas, jitter=1e-8)
-    assert calls == [(64, 17, 17)]
-    assert np.allclose(np.asarray(got.chol), np.asarray(want.chol),
-                       atol=1e-9)
-    assert np.allclose(np.asarray(got.a), np.asarray(want.a), atol=1e-8)
-    assert np.allclose(np.asarray(got.u), np.asarray(want.u), atol=1e-8)
+    got = build_factors(spec, x, y, zs, betas, jitter=1e-8)
+    for i in (0, 31, 63):
+        g = np.asarray(mixed_gram(spec, x, unpack(spec, zs[i])[0]))
+        g = g + 1e-8 * np.mean(np.diag(g)) * np.eye(17)
+        chol = np.linalg.cholesky(g)
+        assert np.allclose(np.asarray(got.chol[i]), chol, atol=1e-9)
+        yv = np.asarray(y) - float(betas[i])
+        assert np.allclose(np.asarray(got.a[i]),
+                           np.linalg.solve(chol, yv), atol=1e-7)
+        assert np.allclose(np.asarray(got.u[i]),
+                           np.linalg.solve(chol, np.ones(17)), atol=1e-7)
 
 
 def test_lazy_draw_chunked_predict_matches_classic(rng):
@@ -192,8 +185,8 @@ def test_lazy_draw_chunked_predict_matches_classic(rng):
 
 
 def test_moments_solve_modes_agree(rng):
-    """The TPU default 'inv_matmul' (solve against I, then one MXU
-    matmul) and the classic 'trsm' path are the same algebra; both are
+    """The 'inv_matmul' path (solve against I, then one matmul) and the
+    default 'trsm' path are the same algebra; both are
     kappa*eps-accurate, so they agree to conditioning-amplified roundoff
     (measured: 1.2e-9 at jitter=1e-6, 1.3e-11 at 1e-4, 7e-8 at the
     near-singular 1e-10 — pure kappa scaling, not an algorithm gap)."""

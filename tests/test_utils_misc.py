@@ -109,78 +109,3 @@ def test_masked_quantile_pair_all_invalid_row():
     assert float(lo[2]) == float(hi[2]) and float(lo[2]) > 1e30
     ok = np.asarray(valid.any(-1))
     assert np.all(np.asarray(lo)[ok] <= np.asarray(hi)[ok])
-
-
-def test_lane_delegation_hook(monkeypatch, tmp_path):
-    """The whole-suite lane MUST delegate to per-file subprocesses (the
-    long-process native-heap crash fix, conftest.pytest_cmdline_main) —
-    this pins the trigger condition, option forwarding, the
-    no-recursion/cache-write env contract, and the exit-code logic
-    without spawning real pytest processes."""
-    import subprocess
-    import types
-
-    import conftest
-
-    calls = []
-
-    def fake_run(cmd, cwd=None, env=None, capture_output=None, text=None):
-        calls.append({"cmd": cmd, "env": env})
-        rc = 1 if "test_linalg.py" in cmd[3] and fake_run.fail_linalg else 0
-        return types.SimpleNamespace(returncode=rc,
-                                     stdout="1 passed in 0.1s\n", stderr="")
-
-    fake_run.fail_linalg = False
-    monkeypatch.setattr(subprocess, "run", fake_run)
-    # when THIS test runs inside a real delegated lane subprocess the
-    # no-recursion marker is already set — clear it so the hook under
-    # test sees the top-level configuration
-    monkeypatch.delenv("CCGP_LANE_INPROC", raising=False)
-
-    class Opt:
-        exitfirst = False
-        maxfail = 0
-
-    class Cfg:
-        args = ["tests"]
-        invocation_params = types.SimpleNamespace(args=("tests", "-q", "-m",
-                                                        "slow"))
-        option = Opt()
-
-    # 1) whole-suite target delegates: one subprocess per test file, with
-    # options forwarded and the env contract set
-    rc = conftest.pytest_cmdline_main(Cfg())
-    assert rc == 0
-    import pathlib
-
-    n_files = len(list((pathlib.Path(conftest.__file__).parent
-                        ).glob("test_*.py")))
-    assert len(calls) == n_files >= 20
-    first = calls[0]
-    assert first["cmd"][:3] == [__import__("sys").executable, "-m",
-                               "pytest"]
-    assert "-q" in first["cmd"] and "-m" in first["cmd"] \
-        and "slow" in first["cmd"]
-    assert first["env"]["CCGP_LANE_INPROC"] == "1"
-    assert first["env"]["CCGP_CACHE_WRITES"] == "1"
-
-    # 2) a failing file makes the lane fail
-    calls.clear()
-    fake_run.fail_linalg = True
-    assert conftest.pytest_cmdline_main(Cfg()) == 1
-
-    # 3) lane subprocesses themselves run in-process (no recursion)
-    monkeypatch.setenv("CCGP_LANE_INPROC", "1")
-    assert conftest.pytest_cmdline_main(Cfg()) is None
-    monkeypatch.delenv("CCGP_LANE_INPROC")
-
-    # 4) targeted file invocations run in-process
-    class CfgFile(Cfg):
-        args = ["tests/test_linalg.py"]
-
-    assert conftest.pytest_cmdline_main(CfgFile()) is None
-    # 5) node-id targets too
-    class CfgNode(Cfg):
-        args = ["tests/test_linalg.py::test_tri_solve"]
-
-    assert conftest.pytest_cmdline_main(CfgNode()) is None
